@@ -1,0 +1,198 @@
+"""The LinearOperator layer: one protocol, interchangeable backends.
+
+Counterpart of ``repro/core/operator.py``.  A :class:`LinearOperator` bundles
+what a Krylov solver needs from the matrix side:
+
+* ``apply(v)``            : u = A v (local to this rank);
+* ``dots(pairs, policy)`` : fully reduced inner products;
+* ``reduce_partials(ps)`` : the AllReduce of precomputed f32 local partials;
+* ``reduce_max(x)``       : the fabric-wide max;
+* ``fused``               : optional :class:`FusedOps`, the kernel passes that
+  run one BiCGStab iteration as kernels plus 3 sync points.
+
+Backends (:data:`BACKENDS`):
+
+* ``reference``: the dense-shift oracle in one address space;
+* ``spmd``: the halo-exchange local apply with plain tensor ops;
+* ``fused``: the halo exchange feeding the CUDA stencil kernel plus the
+  fused_iter kernels (the counterpart of the JAX package's ``pallas``).
+
+On the one-rank fabric every AllReduce is the identity; an axis split over
+more ranks raises until the ``torch.distributed`` slice lands.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.core.comm import OVERLAP, CommSchedule, get_schedule, scheduled_apply
+from repro_torch.core.halo import FabricAxes
+from repro_torch.core.precision import F32, Policy
+from repro_torch.core.solvers.common import local_dots, local_partial
+from repro_torch.core.stencil import StencilCoeffs, apply_ref
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedOps:
+    """The fused kernel passes (see ``kernels/fused_iter``); each returns its
+    vector output(s) plus f32 local partials."""
+
+    dot_partial: Callable      # (a, b) -> f32 partial <a, b>
+    update_q_dots: Callable    # (alpha, r, s, y) -> (q, <q,y>, <y,y>)
+    update_xr_dots: Callable   # (alpha, omega, x, p, q, y, r0) -> (x, r, <r0,r>, <r,r>)
+    update_p: Callable         # (beta, omega, r, p, s) -> p
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearOperator:
+    """A rank-local view of ``A`` plus its communication schedule."""
+
+    name: str
+    coeffs: StencilCoeffs
+    policy: Policy
+    apply: Callable
+    dots: Callable
+    reduce_partials: Callable
+    reduce_max: Callable
+    fused: FusedOps | None = None
+    schedule: CommSchedule = OVERLAP
+
+    @property
+    def spec(self):
+        return self.coeffs.spec
+
+    def with_apply(self, apply: Callable) -> "LinearOperator":
+        """A copy with the SpMV swapped (how right preconditioning wraps)."""
+        return dataclasses.replace(self, apply=apply)
+
+
+def _identity_reduce(partials) -> torch.Tensor:
+    return torch.stack([torch.as_tensor(p).to(torch.float32) for p in partials])
+
+
+def _fabric_axis_names(fabric: FabricAxes) -> tuple[str, ...]:
+    """Fabric axes that carry more than one rank."""
+    pairs = ((fabric.x, fabric.nx), (fabric.y, fabric.ny), (fabric.z, fabric.nz))
+    return tuple(a for a, n in pairs if a is not None and n > 1)
+
+
+def _make_reductions(names: tuple[str, ...], fused_reductions: bool):
+    """(dots, reduce_partials, reduce_max) over the named fabric axes: one
+    AllReduce per sync point (fused) or per dot (the paper's separate
+    schedule).  On one rank (no names) each AllReduce is the identity."""
+    if names:
+        raise NotImplementedError("multi-rank AllReduce (torch.distributed): next slice")
+
+    def psum(x):
+        return x
+
+    if fused_reductions:
+        def reduce_partials(ps):
+            return psum(_identity_reduce(ps))
+    else:
+        def reduce_partials(ps):
+            return torch.stack([psum(torch.as_tensor(p).to(torch.float32)) for p in ps])
+
+    def dots(pairs, policy):
+        return reduce_partials([local_partial(a, b, policy) for a, b in pairs])
+
+    def reduce_max(x):
+        return x
+
+    return dots, reduce_partials, reduce_max
+
+
+def reference_operator(coeffs: StencilCoeffs, *, policy: Policy = F32,
+                       schedule=None, **_unused) -> LinearOperator:
+    """Single-address-space oracle: dense-shift apply, local reductions."""
+    cf = coeffs.astype(policy.storage)
+    return LinearOperator(
+        name="reference", coeffs=cf, policy=policy,
+        apply=lambda v: apply_ref(cf, v, policy=policy),
+        dots=lambda pairs, policy: local_dots(pairs, policy),
+        reduce_partials=_identity_reduce,
+        reduce_max=lambda x: x,
+        schedule=get_schedule(schedule),
+    )
+
+
+def spmd_operator(coeffs: StencilCoeffs, fabric: FabricAxes | None = None, *,
+                  policy: Policy = F32, schedule=None,
+                  fused_reductions: bool = True, **_unused) -> LinearOperator:
+    """Halo-exchange backend with plain tensor ops (the paper's scheme)."""
+    fabric = fabric or FabricAxes()
+    cf = coeffs.astype(policy.storage)
+    sched = get_schedule(schedule)
+    dots, reduce_partials, reduce_max = _make_reductions(
+        _fabric_axis_names(fabric), fused_reductions)
+    return LinearOperator(
+        name="spmd", coeffs=cf, policy=policy,
+        apply=lambda v: scheduled_apply(cf, v, fabric, policy=policy, schedule=sched),
+        dots=dots, reduce_partials=reduce_partials, reduce_max=reduce_max,
+        schedule=sched,
+    )
+
+
+def fused_operator(coeffs: StencilCoeffs, fabric: FabricAxes | None = None, *,
+                   policy: Policy = F32, schedule=None,
+                   fused_reductions: bool = True, **_unused) -> LinearOperator:
+    """Kernel backend: the halo exchange feeding the CUDA stencil kernel for
+    the SpMV, and the fused_iter kernels for the vector updates and dot
+    partials; one BiCGStab iteration is kernels plus 3 sync points.  On CPU
+    tensors every kernel takes its plain version."""
+    from repro_torch.kernels.fused_iter import dot_mixed, update_p, update_q_dots, update_xr_dots
+    from repro_torch.kernels.stencil_nd.ops import fused_local_apply
+
+    fabric = fabric or FabricAxes()
+    cf = coeffs.astype(policy.storage)
+    sched = get_schedule(schedule)
+    _dots, reduce_partials, reduce_max = _make_reductions(
+        _fabric_axis_names(fabric), fused_reductions)
+
+    cf_unit = StencilCoeffs(cf.diags)   # the kernel's unit-diagonal contract
+    base_apply = lambda v: fused_local_apply(cf_unit, v, fabric, policy=policy,
+                                             schedule=sched)
+    if cf.diag is None:
+        apply = base_apply
+    else:
+        # The kernel assumes the family's unit main diagonal; a raw
+        # (non-normalized) operator adds its (d - 1) deviation elementwise.
+        c = policy.compute
+        dcorr = cf.diag.to(c) - torch.ones((), dtype=c, device=cf.diag.device)
+
+        def apply(v):
+            return (base_apply(v).to(c) + dcorr * v.to(c)).to(policy.storage)
+
+    return LinearOperator(
+        name="fused", coeffs=cf, policy=policy,
+        apply=apply,
+        dots=lambda pairs, policy: reduce_partials([dot_mixed(a, b) for a, b in pairs]),
+        reduce_partials=reduce_partials,
+        reduce_max=reduce_max,
+        schedule=sched,
+        fused=FusedOps(dot_partial=dot_mixed, update_q_dots=update_q_dots,
+                       update_xr_dots=update_xr_dots, update_p=update_p),
+    )
+
+
+#: backend name -> constructor; launch/solve.py keys off this.
+BACKENDS = {
+    "reference": reference_operator,
+    "spmd": spmd_operator,
+    "fused": fused_operator,
+}
+
+
+def make_operator(backend: str, coeffs: StencilCoeffs, fabric: FabricAxes | None = None,
+                  *, policy: Policy = F32, **kwargs) -> LinearOperator:
+    """Build a backend by name; the reference backend ignores ``fabric``."""
+    try:
+        ctor = BACKENDS[backend]
+    except KeyError:
+        raise KeyError(f"unknown backend {backend!r}; have {sorted(BACKENDS)}") from None
+    if backend == "reference":
+        return ctor(coeffs, policy=policy, **kwargs)
+    return ctor(coeffs, fabric, policy=policy, **kwargs)

@@ -1,0 +1,102 @@
+"""Wrappers around the stencil kernel: padding, argument order, and the
+drop-in local apply that pairs the kernel with the depth-r halo exchange.
+
+Counterpart of ``repro/kernels/stencil_nd/ops.py``.  There is no tuning
+cache yet: the kernel runs at its one fixed tile, and any tile would give the
+same bits (each output is a canonical-order sum over the offsets).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.stencil import StencilCoeffs, StencilSpec
+from repro_torch.kernels.stencil_nd.kernel import stencil_nd
+
+
+def _spec_order(coeffs: StencilCoeffs, spec: StencilSpec) -> list[torch.Tensor]:
+    """Diagonals in the spec's canonical order (the kernel's argument contract)."""
+    return [coeffs.diags[n] for n in spec.names]
+
+
+def _require_unit_diag(coeffs: StencilCoeffs) -> None:
+    if coeffs.diag is not None:
+        raise NotImplementedError(
+            "the stencil kernel assumes the family's unit diagonal; raw operators "
+            "go through core.operator.fused_operator, which adds the diagonal "
+            "deviation outside the kernel")
+
+
+def _require_unbatched(v: torch.Tensor, coeffs: StencilCoeffs) -> None:
+    if v.ndim != coeffs.ndim or coeffs.ndim != 3:
+        raise NotImplementedError("the stencil kernel takes one 3-D block; "
+                                  "the batched (many-RHS) form is the next slice")
+
+
+def stencil_apply(coeffs: StencilCoeffs, v: torch.Tensor, *,
+                  spec: StencilSpec | None = None,
+                  accum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """u = A v on a local block, zero-Dirichlet at the block edges, any spec."""
+    _require_unit_diag(coeffs)
+    _require_unbatched(v, coeffs)
+    spec = spec or coeffs.spec
+    r = spec.radius
+    return stencil_nd(F.pad(v, (r, r) * 3), _spec_order(coeffs, spec), spec.offsets,
+                      radius=r, accum_dtype=accum_dtype)
+
+
+def ring_patch_apply(exchange, cf_list: list[torch.Tensor], spec: StencilSpec,
+                     u: torch.Tensor, fabric, *,
+                     accum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The overlap epilogue: re-run the kernel on the exchanged depth-r ring
+    slabs and overwrite the ring of ``u`` in place (``u`` is the interior
+    kernel's fresh output).  One extra launch per boundary region; none on a
+    one-rank fabric."""
+    from repro_torch.core.comm import boundary_regions
+
+    r = spec.radius
+    for reg in boundary_regions(exchange.shape, fabric, r):
+        lo_hi = [(sl.start or 0, exchange.shape[i] if sl.stop is None else sl.stop)
+                 for i, sl in enumerate(reg)]
+        sub_vp = exchange.padded[tuple(slice(lo, hi + 2 * r) for lo, hi in lo_hi)]
+        u[reg] = stencil_nd(sub_vp.contiguous(), [c[reg].contiguous() for c in cf_list],
+                            spec.offsets, radius=r, accum_dtype=accum_dtype)
+    return u
+
+
+def fused_local_apply(coeffs: StencilCoeffs, v: torch.Tensor, fabric, *, policy,
+                      schedule=None) -> torch.Tensor:
+    """Drop-in for ``core.halo.local_apply``: the depth-r halo exchange feeding
+    the stencil kernel, under either communication schedule (counterpart of
+    ``pallas_local_apply``).
+
+    ``blocking``: the kernel runs once over the assembled halo'd block.
+    ``overlap``: the kernel runs on the zero-padded block (the interior,
+    which waits on no neighbor), then the boundary ring is patched from the
+    exchanged block.  Both accumulate the same canonical-order terms, so they
+    agree bitwise.  Products and sums run in ``policy.compute``: under
+    ``bf16_mixed`` the SpMV accumulates in bf16.
+    """
+    from repro_torch.core import comm
+
+    _require_unit_diag(coeffs)
+    spec = coeffs.spec
+    r = spec.radius
+    cf = coeffs.astype(policy.storage)
+    vs = v.to(policy.storage)
+    _require_unbatched(vs, cf)
+    cf_list = _spec_order(cf, spec)
+
+    def kernel(vp):
+        return stencil_nd(vp, cf_list, spec.offsets, radius=r, accum_dtype=policy.compute)
+
+    def patch_ring(exchange, u):
+        return ring_patch_apply(exchange, cf_list, spec, u, fabric,
+                                accum_dtype=policy.compute)
+
+    return comm.scheduled_apply(
+        cf, vs, fabric, policy=policy, schedule=schedule,
+        full_fn=kernel,
+        interior_fn=lambda vv: kernel(F.pad(vv, (r, r) * 3)),
+        patch_fn=patch_ring)
