@@ -10,14 +10,22 @@ Phases (one line of output each, JSON where it carries numbers):
    (``nvcc`` per source, into ``build/repro_torch_kernels/``) and its seconds;
 2. every kernel against its plain version on the card, at 256x256x256,
    at the default cell's 48x48x32 and at the ragged 37x29x17, in f32 and
-   bf16 (the stencil for star7, box27 and star25), then at the main path's
-   own shape, 608x608x1536 in bf16 with bf16 stencil accumulation: vector
-   outputs must be bitwise equal, dot partials within
-   log2(n) x eps_f32 x sum|a_i b_i| (both sides sum the same exact f32
-   products; only the order differs).  Each kernel's time on those
-   paper-mesh inputs (CUDA events, warmed up, mean of 20 launches) goes
-   beside its plain version's time, a library call's where one computes the
-   same function, and its bound at 3.35 TB/s;
+   bf16: the stencil (K1) for star7, box27 and star25; the batched stencil
+   (K1b) at B = 1 and 3 for the same specs, each slice also against K1; the
+   fused passes (K2-K5) and their batched forms (K2b-K5b) at B = 1 and 3
+   with distinct per-RHS scalars, each RHS's vectors and dots also against
+   the unbatched kernel on its slice, bit for bit; and the star7 SpMV with
+   its dot epilogue (K6), whose vector must also equal K1's with f32
+   accumulation.  Then at each path's own shapes: K1-K5 and K6 at
+   608x608x1536 in bf16 (K1 with bf16 accumulation, K6 with f32), K1b-K5b at
+   608^3 x 4 in bf16.  Vector outputs must be bitwise equal, dot partials
+   within log2(n) x eps_f32 x sum|a_i b_i| (both sides sum the same exact
+   f32 products; only the order differs).  Each kernel's time on those
+   inputs (CUDA events, warmed up, mean of 20 launches) goes beside its plain
+   version's time, its bound at 3.35 TB/s, a library call's time where one
+   PyTorch call computes the same function (K5: ``torch.dot``, K5b:
+   ``torch.linalg.vecdot``), the batched kernels beside 4 unbatched launches
+   on the same slices, and K6 beside K1 + K5 on the same inputs;
 3. the CLI's default problem (48x48x32 convdiff star7, f32, tol 1e-6)
    through ``--backend fused`` for seeds 0-4: each must converge to a true
    relative residual below 1e-5, with the kernels' launch counts, and its
@@ -30,11 +38,28 @@ Phases (one line of output each, JSON where it carries numbers):
    ``bf16_mixed``) through ``--backend fused`` for 30 iterations at tol 0:
    ms/iter, GB/s against the bytes an iteration must move, finite residuals
    below 1, and launch counts of exactly 2 stencil + 1 of each fused pass
-   per iteration plus 2 dot_mixed at setup.
+   per iteration plus 2 dot_mixed at setup;
+5. the batched main path: ``joule_600`` (608^3) with ``--nrhs 4``,
+   ``bf16_mixed``, ``--backend fused``, 30 iterations at tol 0: ms per
+   iteration and per RHS-iteration, GB/s against the batched bytes model
+   (coefficients read once per SpMV), peak memory, finite per-RHS residuals
+   below 1, and exactly 2 K1b and 1 each of K2b-K4b per iteration plus K5b
+   at iterations + 2, with no unbatched launch;
+6. batched semantics at the default cell (f32, tol 1e-6), 4 RHS for seeds
+   0-4: every RHS converges to a true residual below 1e-5, each RHS's x and
+   iteration count equal an unbatched fused solve of that RHS bit for bit,
+   and a (1,)+shape solve equals the unbatched one bit for bit;
+7. ``solve_ref_fused``: at the default cell, f32, seeds 0-4, it converges
+   within 2 iterations of phase 3's fused count; at 608x608x1536 in bf16 it
+   runs 30 iterations with exactly 2 K6 and 1 each of K3 and K4 per
+   iteration, timed against its own bytes model.
 
-``--profile`` adds a torch.profiler trace of a few paper-mesh iterations:
-device time by kernel and the card's idle share.
+``--profile`` adds a torch.profiler trace of a few iterations of each
+measured path (phases 4, 5 and 7): device time by kernel and the card's
+idle share.
 
+The ``kernels`` line lists every kernel with the launches of the path that
+runs it (K1-K5: phase 4; K1b-K5b: phase 5; K6: phase 7's paper-mesh run).
 It exits non-zero, without the last line, when any phase fails, when no CUDA
 device is present, or when the package is missing beside it.  The full
 record goes to ``--out`` (default ``build/chip_smoke.json``).
@@ -56,23 +81,32 @@ PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA data sheet
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores, NVIDIA data sheet
 EPS_F32 = 2.0 ** -23
 PAPER_MESH = (608, 608, 1536)
-DEFAULT_MESH = (48, 48, 32)  # the CLI's default cell (phase 3)
+JOULE_MESH = (608, 608, 608)  # configs/stencil_cs1.py joule_600: the batched path's mesh
+DEFAULT_MESH = (48, 48, 32)  # the CLI's default cell (phases 3, 6, 7)
 CHECK_SHAPES = [(256, 256, 256), DEFAULT_MESH, (37, 29, 17)]
+CHECK_BATCHES = (1, 3)
 MAIN_ITERS = 30
+MAIN_NRHS = 4
 PHASE3_SEEDS = 5
 PROFILE_ITERS = 5
 
-KERNELS = {   # name -> (CUDA source, the TPU kernel it replaces)
-    "stencil_nd": ("src/repro_torch/kernels/csrc/stencil_nd.cu",
-                   "src/repro/kernels/stencil_nd/kernel.py:120"),
-    "update_q_dots": ("src/repro_torch/kernels/csrc/fused_iter.cu",
-                      "src/repro/kernels/fused_iter/kernel.py:74"),
-    "update_xr_dots": ("src/repro_torch/kernels/csrc/fused_iter.cu",
-                       "src/repro/kernels/fused_iter/kernel.py:124"),
-    "update_p": ("src/repro_torch/kernels/csrc/fused_iter.cu",
-                 "src/repro/kernels/fused_iter/kernel.py:168"),
-    "dot_mixed": ("src/repro_torch/kernels/csrc/fused_iter.cu",
-                  "src/repro/kernels/fused_iter/kernel.py:203"),
+_SRC = "src/repro_torch/kernels/csrc/"
+_TPU = "src/repro/kernels/"
+#: name -> (CUDA source, the TPU kernel it replaces, the phase whose run gives its launches)
+KERNELS = {
+    "stencil_nd": (_SRC + "stencil_nd.cu", _TPU + "stencil_nd/kernel.py:120", "paper_mesh"),
+    "update_q_dots": (_SRC + "fused_iter.cu", _TPU + "fused_iter/kernel.py:74", "paper_mesh"),
+    "update_xr_dots": (_SRC + "fused_iter.cu", _TPU + "fused_iter/kernel.py:124", "paper_mesh"),
+    "update_p": (_SRC + "fused_iter.cu", _TPU + "fused_iter/kernel.py:168", "paper_mesh"),
+    "dot_mixed": (_SRC + "fused_iter.cu", _TPU + "fused_iter/kernel.py:203", "paper_mesh"),
+    "stencil_nd_batched": (_SRC + "stencil_nd.cu", _TPU + "stencil_nd/kernel.py:78", "batched"),
+    "update_q_dots_batched": (_SRC + "fused_iter.cu", _TPU + "fused_iter/kernel.py:79",
+                              "batched"),
+    "update_xr_dots_batched": (_SRC + "fused_iter.cu", _TPU + "fused_iter/kernel.py:130",
+                               "batched"),
+    "update_p_batched": (_SRC + "fused_iter.cu", _TPU + "fused_iter/kernel.py:174", "batched"),
+    "dot_mixed_batched": (_SRC + "fused_iter.cu", _TPU + "fused_iter/kernel.py:208", "batched"),
+    "stencil7_dot": (_SRC + "stencil7_dot.cu", _TPU + "stencil_nd/fused.py:104", "ref_fused"),
 }
 
 failures: list[str] = []
@@ -149,6 +183,12 @@ def dot_close(name, got, want, a, b, label) -> None:
                        f"(|diff| {diff:.3e} > {tol:.3e})")
 
 
+def same_bits(name, got, want, label) -> None:
+    """Outputs (vectors and 0-d dots alike) equal bit for bit."""
+    check(all(g.equal(w) for g, w in zip(got, want)),
+          f"{name} {label}: not bitwise equal to the unbatched kernel on its slice")
+
+
 def check_fused_iter(torch, a, o, b, v, label) -> None:
     """K2-K5 against their plain versions on vectors ``v`` and 0-d f32 scalars."""
     from repro_torch.kernels.fused_iter import kernel as fk
@@ -178,6 +218,87 @@ def scalars(torch):
     return tuple(torch.tensor(x, device=dev) for x in (0.37, -1.3, 0.81))   # alpha, omega, beta
 
 
+def batch_scalars(torch, nb: int):
+    """Distinct per-RHS alpha, omega and beta, ``[nb]`` f32 on the card."""
+    dev = torch.device("cuda")
+    return tuple(torch.linspace(lo, hi, nb, device=dev)
+                 for lo, hi in ((0.3, 0.9), (-1.3, -0.5), (0.2, 0.8)))
+
+
+def check_fused_iter_batched(torch, v, label) -> None:
+    """K2b-K5b on ``(B, n)`` operands with distinct per-RHS scalars: against
+    their plain versions, and each RHS's vectors and dots against the
+    unbatched kernel on its slice, bit for bit."""
+    from repro_torch.kernels.fused_iter import kernel as fk
+    from repro_torch.kernels.fused_iter import ref as fref
+
+    nb = v[0].shape[0]
+    a, o, b = batch_scalars(torch, nb)
+    name = "update_q_dots_batched"
+    got, want = fk.update_q_dots_batched(a, *v[:3]), fref.update_q_dots_batched_ref(a, *v[:3])
+    vec_eq(name, got[0], want[0], label)
+    for i in range(nb):
+        dot_close(name, got[1][i], want[1][i], got[0][i], v[2][i], f"{label} rhs {i} <q,y>")
+        dot_close(name, got[2][i], want[2][i], v[2][i], v[2][i], f"{label} rhs {i} <y,y>")
+        same_bits(name, [t[i] for t in got], fk.update_q_dots(a[i], *(t[i] for t in v[:3])),
+                  f"{label} rhs {i}")
+    del got, want
+    name = "update_xr_dots_batched"
+    got, want = fk.update_xr_dots_batched(a, o, *v), fref.update_xr_dots_batched_ref(a, o, *v)
+    vec_eq(name, got[0], want[0], label + " x")
+    vec_eq(name, got[1], want[1], label + " r")
+    for i in range(nb):
+        dot_close(name, got[2][i], want[2][i], v[4][i], got[1][i], f"{label} rhs {i} <r0,r>")
+        dot_close(name, got[3][i], want[3][i], got[1][i], got[1][i], f"{label} rhs {i} <r,r>")
+        same_bits(name, [t[i] for t in got], fk.update_xr_dots(a[i], o[i], *(t[i] for t in v)),
+                  f"{label} rhs {i}")
+    del got, want
+    name = "update_p_batched"
+    got = fk.update_p_batched(b, o, *v[:3])
+    vec_eq(name, got, fref.update_p_batched_ref(b, o, *v[:3]), label)
+    for i in range(nb):
+        same_bits(name, [got[i]], [fk.update_p(b[i], o[i], *(t[i] for t in v[:3]))],
+                  f"{label} rhs {i}")
+    name = "dot_mixed_batched"
+    got, want = fk.dot_mixed_batched(v[0], v[1]), fref.dot_mixed_batched_ref(v[0], v[1])
+    for i in range(nb):
+        dot_close(name, got[i], want[i], v[0][i], v[1][i], f"{label} rhs {i}")
+        same_bits(name, [got[i]], [fk.dot_mixed(v[0][i], v[1][i])], f"{label} rhs {i}")
+
+
+def check_stencil_batched(torch, vp, cfs, spec, acc, label) -> None:
+    """K1b against its plain version, and each slice against K1."""
+    from repro_torch.kernels.stencil_nd.kernel import stencil_nd, stencil_nd_batched
+    from repro_torch.kernels.stencil_nd.ref import stencil_nd_padded_ref
+
+    kw = dict(radius=spec.radius, accum_dtype=acc)
+    got = stencil_nd_batched(vp, cfs, spec.offsets, **kw)
+    vec_eq("stencil_nd_batched", got, stencil_nd_padded_ref(vp, cfs, spec.offsets, **kw), label)
+    for i in range(vp.shape[0]):
+        same_bits("stencil_nd_batched", [got[i]], [stencil_nd(vp[i], cfs, spec.offsets, **kw)],
+                  f"{label} slice {i}")
+
+
+def check_stencil7_dot(torch, vp, w, cfs, label) -> None:
+    """K6 (f32 accumulation) against its plain version, both variants; its
+    vector also against K1 with f32 accumulation."""
+    from repro_torch.core.stencil import STAR7
+    from repro_torch.kernels.stencil_nd.fused import stencil7_dots_padded
+    from repro_torch.kernels.stencil_nd.kernel import stencil_nd
+    from repro_torch.kernels.stencil_nd.ref import stencil7_dots_padded_ref
+
+    name = "stencil7_dot"
+    for two in (False, True):
+        got = stencil7_dots_padded(vp, w, cfs, two_dots=two)
+        want = stencil7_dots_padded_ref(vp, w, cfs, STAR7.offsets, two_dots=two)
+        vec_eq(name, got[0], want[0], f"{label} two_dots={two}")
+        dot_close(name, got[1], want[1], w, got[0], f"{label} two_dots={two} <w,u>")
+        if two:
+            dot_close(name, got[2], want[2], got[0], got[0], f"{label} <u,u>")
+    vec_eq(name, got[0], stencil_nd(vp, cfs, STAR7.offsets, radius=1, accum_dtype=torch.float32),
+           f"{label} vs K1 with f32 accumulation")
+
+
 def check_kernels(torch) -> None:
     """Every kernel vs its plain version at CHECK_SHAPES."""
     from repro_torch.core import stencil
@@ -191,33 +312,56 @@ def check_kernels(torch) -> None:
         for dtype in (torch.float32, torch.bfloat16):
             rnd = lambda shp: torch.randn(shp, generator=gen, device=dev).to(dtype)
             label = f"{'x'.join(map(str, shape))} {str(dtype).split('.')[-1]}"
+            accs = [torch.float32] if dtype == torch.float32 else [torch.bfloat16, torch.float32]
             for sname, spec in specs.items():
                 r = spec.radius
                 vp = rnd(tuple(s + 2 * r for s in shape))   # random halo: indexing is checked
                 cfs = [rnd(shape) * 0.2 for _ in spec.offsets]
-                accs = [torch.float32] if dtype == torch.float32 else [torch.bfloat16,
-                                                                       torch.float32]
                 for acc in accs:
                     got = stencil_nd(vp, cfs, spec.offsets, radius=r, accum_dtype=acc)
                     want = stencil_nd_padded_ref(vp, cfs, spec.offsets, radius=r,
                                                  accum_dtype=acc)
                     vec_eq("stencil_nd", got, want,
                            f"{sname} {label} accum {str(acc).split('.')[-1]}")
+                if sname == "star7":
+                    check_stencil7_dot(torch, vp, rnd(shape), cfs, f"{label}")
+                for nb in CHECK_BATCHES:
+                    vpb = rnd((nb,) + tuple(s + 2 * r for s in shape))
+                    for acc in accs:
+                        check_stencil_batched(torch, vpb, cfs, spec, acc,
+                                              f"{sname} {label} B={nb} accum "
+                                              f"{str(acc).split('.')[-1]}")
+                    del vpb
                 del vp, cfs
             check_fused_iter(torch, *scalars(torch), [rnd(math.prod(shape)) for _ in range(5)],
                              label)
+            for nb in CHECK_BATCHES:
+                check_fused_iter_batched(torch, [rnd((nb, math.prod(shape))) for _ in range(5)],
+                                         f"{label} B={nb}")
     torch.cuda.synchronize()
+
+
+def _rec(torch, out, name, kern, plain, moved, flops, library=None, **beside) -> None:
+    """Time a kernel, its plain version and a library call on the same
+    inputs, with the bound of the work; ``beside`` names other yardsticks."""
+    out[name] = dict(ms=cuda_ms(torch, kern), plain_ms=cuda_ms(torch, plain),
+                     library_ms=None if library is None else cuda_ms(torch, library),
+                     bytes=moved, flops=flops,
+                     **{k + "_ms": cuda_ms(torch, fn) for k, fn in beside.items()})
+    out[name]["bound_ms"], out[name]["bound_by"] = bound(moved, flops)
 
 
 def check_and_time_paper_mesh(torch) -> dict:
     """Each kernel against its plain version at the main path's shape and
-    dtype (608x608x1536 bf16, star7, bf16 accumulation), then the times of
-    both on the same inputs, with bytes and flops of the work for the bound."""
+    dtype (608x608x1536 bf16, star7, bf16 accumulation; K6 with f32
+    accumulation, as solve_ref_fused runs it), then the times of both on the
+    same inputs, with bytes and flops of the work for the bound."""
     from repro_torch.core import stencil
     from repro_torch.kernels.fused_iter import kernel as fk
     from repro_torch.kernels.fused_iter import ref as fref
+    from repro_torch.kernels.stencil_nd.fused import stencil7_dots_padded
     from repro_torch.kernels.stencil_nd.kernel import stencil_nd
-    from repro_torch.kernels.stencil_nd.ref import stencil_nd_padded_ref
+    from repro_torch.kernels.stencil_nd.ref import stencil7_dots_padded_ref, stencil_nd_padded_ref
 
     dev, dt = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -235,18 +379,14 @@ def check_and_time_paper_mesh(torch) -> dict:
                                                   accum_dtype=dt)
     vec_eq("stencil_nd", stencil_kernel(), stencil_plain(), f"star7 {label} accum bfloat16")
     check_fused_iter(torch, a, o, b, v, label)
+    w = v[4].view(PAPER_MESH)
+    check_stencil7_dot(torch, vp, w, cfs, label + " accum float32")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
     vec = nbytes(v[0])
     out = {}
-
-    def rec(name, kern, plain, moved, flops, library=None):
-        out[name] = dict(ms=cuda_ms(torch, kern), plain_ms=cuda_ms(torch, plain),
-                         library_ms=None if library is None else cuda_ms(torch, library),
-                         bytes=moved, flops=flops)
-        out[name]["bound_ms"], out[name]["bound_by"] = bound(moved, flops)
-
+    rec = lambda *args, **extra: _rec(torch, out, *args, **extra)
     rec("stencil_nd", stencil_kernel, stencil_plain, nbytes(vp, *cfs) + vec,
         2 * spec.n_offsets * n)
     rec("update_q_dots", lambda: fk.update_q_dots(a, v[0], v[1], v[2]),
@@ -258,7 +398,14 @@ def check_and_time_paper_mesh(torch) -> dict:
     rec("dot_mixed", lambda: fk.dot_mixed(v[0], v[1]),
         lambda: fref.dot_mixed_ref(v[0], v[1]), 2 * vec, 2 * n,
         library=lambda: torch.dot(v[0], v[1]))
-    del vp, cfs, v
+    # K6 as solve_ref_fused runs it (<q,y>, <y,y>: the two-dot variant reads
+    # no w of its own, so time the one-dot variant, which reads all 9 words),
+    # beside K1 + K5 on the same inputs
+    k1_k5 = lambda: fk.dot_mixed(v[4], stencil_nd(vp, cfs, spec.offsets, radius=1).view(-1))
+    rec("stencil7_dot", lambda: stencil7_dots_padded(vp, w, cfs, two_dots=False),
+        lambda: stencil7_dots_padded_ref(vp, w, cfs, spec.offsets, two_dots=False),
+        nbytes(vp, w, *cfs) + vec, (2 * spec.n_offsets + 2) * n, k1_plus_k5=k1_k5)
+    del vp, cfs, v, w
     torch.cuda.empty_cache()
     # dot_mixed in f32 beside torch.dot on the same f32 inputs
     x, y = (torch.randn(n, generator=gen, device=dev) for _ in range(2))
@@ -270,19 +417,83 @@ def check_and_time_paper_mesh(torch) -> dict:
     return {"bf16": out, "dot_mixed_f32": f32}
 
 
+def check_and_time_batched(torch) -> dict:
+    """K1b-K5b at the batched path's shape (608^3 x 4 RHS, bf16; K1b with
+    bf16 accumulation, as bf16_mixed runs it): against their plain versions
+    and, per RHS, the unbatched kernels, then timed beside their plain
+    versions, 4 unbatched launches on the same slices and the bound."""
+    from repro_torch.core import stencil
+    from repro_torch.kernels.fused_iter import kernel as fk
+    from repro_torch.kernels.fused_iter import ref as fref
+    from repro_torch.kernels.stencil_nd.kernel import stencil_nd, stencil_nd_batched
+    from repro_torch.kernels.stencil_nd.ref import stencil_nd_padded_ref
+
+    dev, dt, nb = torch.device("cuda"), torch.bfloat16, MAIN_NRHS
+    gen = torch.Generator(device=dev).manual_seed(2)
+    n = math.prod(JOULE_MESH)
+    spec = stencil.STAR7
+    vp = torch.randn((nb,) + tuple(s + 2 for s in JOULE_MESH), generator=gen,
+                     device=dev).to(dt)
+    cfs = [(0.1 * torch.randn(JOULE_MESH, generator=gen, device=dev)).to(dt)
+           for _ in spec.offsets]
+    v = [torch.randn((nb, n), generator=gen, device=dev).to(dt) for _ in range(5)]
+    a, o, b = batch_scalars(torch, nb)
+    label = f"{'x'.join(map(str, JOULE_MESH))} x {nb} bfloat16"
+    check_stencil_batched(torch, vp, cfs, spec, dt, label + " accum bfloat16")
+    check_fused_iter_batched(torch, v, label)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    kw = dict(radius=1, accum_dtype=dt)
+    each = lambda fn: lambda: [fn(i) for i in range(nb)]   # nb unbatched launches
+    vec = nbytes(v[0])
+    out = {}
+    rec = lambda *args, **extra: _rec(torch, out, *args, **extra)
+    rec("stencil_nd_batched", lambda: stencil_nd_batched(vp, cfs, spec.offsets, **kw),
+        lambda: stencil_nd_padded_ref(vp, cfs, spec.offsets, **kw),
+        nbytes(vp, *cfs) + vec, 2 * spec.n_offsets * n * nb,
+        unbatched=each(lambda i: stencil_nd(vp[i], cfs, spec.offsets, **kw)))
+    rec("update_q_dots_batched", lambda: fk.update_q_dots_batched(a, *v[:3]),
+        lambda: fref.update_q_dots_batched_ref(a, *v[:3]), 4 * vec, 6 * n * nb,
+        unbatched=each(lambda i: fk.update_q_dots(a[i], *(t[i] for t in v[:3]))))
+    rec("update_xr_dots_batched", lambda: fk.update_xr_dots_batched(a, o, *v),
+        lambda: fref.update_xr_dots_batched_ref(a, o, *v), 7 * vec, 10 * n * nb,
+        unbatched=each(lambda i: fk.update_xr_dots(a[i], o[i], *(t[i] for t in v))))
+    rec("update_p_batched", lambda: fk.update_p_batched(b, o, *v[:3]),
+        lambda: fref.update_p_batched_ref(b, o, *v[:3]), 4 * vec, 4 * n * nb,
+        unbatched=each(lambda i: fk.update_p(b[i], o[i], *(t[i] for t in v[:3]))))
+    rec("dot_mixed_batched", lambda: fk.dot_mixed_batched(v[0], v[1]),
+        lambda: fref.dot_mixed_batched_ref(v[0], v[1]), 2 * vec, 2 * n * nb,
+        library=lambda: torch.linalg.vecdot(v[0], v[1]),
+        unbatched=each(lambda i: fk.dot_mixed(v[0][i], v[1][i])))
+    del vp, cfs, v
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phases 3 and 4: the main path through the CLI's entry point
 # ---------------------------------------------------------------------------
 
-def iteration_bytes(shape, itemsize: int, radius: int = 1, n_off: int = 6) -> int:
-    """Bytes one fused BiCGStab iteration must move: each op's inputs read
-    once and its outputs written once."""
+def iteration_bytes(shape, itemsize: int, radius: int = 1, n_off: int = 6, nrhs: int = 1) -> int:
+    """Bytes one fused BiCGStab iteration must move for ``nrhs`` right-hand
+    sides: each op's inputs read once and its outputs written once, with the
+    batched SpMV reading each coefficient field once for all of them."""
     n = math.prod(shape)
     n_pad = math.prod(s + 2 * radius for s in shape)
-    pad = n + n_pad                      # read v, write its zero-padded copy
-    spmv = n_pad + n_off * n + n         # read the padded v and the fields, write u
-    fused = (3 + 4 + 7 + 4 + 2) * n      # q_in, update_q_dots, update_xr_dots, update_p, dot_mixed
-    return (2 * (pad + spmv) + fused) * itemsize
+    pad = nrhs * (n + n_pad)                    # read v, write its zero-padded copy
+    spmv = nrhs * n_pad + n_off * n + nrhs * n  # read the padded v and the fields, write u
+    fused = nrhs * (3 + 4 + 7 + 4 + 2) * n      # q_in, update_q_dots, update_xr_dots,
+    return (2 * (pad + spmv) + fused) * itemsize  # update_p, dot_mixed
+
+
+def ref_fused_iteration_bytes(shape, itemsize: int) -> int:
+    """Bytes one ``solve_ref_fused`` iteration must move: 2 zero pads, 2 K6
+    (padded v, 6 fields and w in; u out), the inline q (r, s in; q out),
+    update_xr_dots (7 words) and update_p (4 words)."""
+    n = math.prod(shape)
+    n_pad = math.prod(s + 2 for s in shape)
+    return (2 * ((n + n_pad) + (n_pad + 8 * n)) + (3 + 7 + 4) * n) * itemsize
 
 
 def ptxas_summary(log: str) -> dict:
@@ -311,9 +522,16 @@ def run_cli(argv):
     return res, launch_counts()
 
 
-def expected_counts(iters: int) -> dict:
-    return {"stencil_nd": 2 * iters, "update_q_dots": iters, "update_xr_dots": iters,
-            "update_p": iters, "dot_mixed": iters + 2}
+def expected_counts(iters: int, batched: bool = False) -> dict:
+    """Every kernel's launches over a fused solve of ``iters`` iterations:
+    2 stencils and 1 of each pass per iteration, 2 more dots at setup, and
+    none of the other form or of K6."""
+    sfx = "_batched" if batched else ""
+    counts = {k: 0 for k in KERNELS}
+    counts.update({"stencil_nd" + sfx: 2 * iters, "update_q_dots" + sfx: iters,
+                   "update_xr_dots" + sfx: iters, "update_p" + sfx: iters,
+                   "dot_mixed" + sfx: iters + 2})
+    return counts
 
 
 def with_spmd_dots(op):
@@ -368,16 +586,67 @@ def dot_order_matched(torch, seed: int) -> dict:
     return out
 
 
-def profile_paper_mesh(torch, iters: int = PROFILE_ITERS) -> dict:
-    """Device time by kernel over a few fused iterations at the paper mesh
-    (torch.profiler, CUDA activity), and the card's idle share of the
-    window.  The problem is built outside the window and one iteration runs
-    first, so the window holds only the solver loop."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def batched_semantics(torch, seed: int) -> dict:
+    """The default cell with 4 right-hand sides through the fused kernels:
+    every RHS converges, equals its unbatched solve bit for bit, and a
+    (1,)+shape batch equals the unbatched solve bit for bit."""
     from repro_torch.core import bicgstab, precision, stencil
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import solve
     from repro_torch.launch.mesh import make_mesh_for_devices
+
+    _, cf, b = solve.manufactured_system(None, stencil.STAR7, DEFAULT_MESH, seed=seed,
+                                         device=torch.device("cuda"), nrhs=MAIN_NRHS)
+    mesh = make_mesh_for_devices()
+    kw = dict(tol=1e-6, maxiter=200, policy=precision.F32, backend="fused")
+    reset_launch_counts()
+    rb = bicgstab.solve_distributed(mesh, cf, b, **kw)
+    counts = launch_counts()
+    its = rb.iterations.tolist()
+    out = dict(seed=seed, iterations=its, converged=rb.converged.tolist(),
+               true_rel_residual=[solve._true_rel_residual(cf, rb.x[i], b[i])
+                                  for i in range(MAIN_NRHS)], launches=counts)
+    check(counts == expected_counts(max(its), batched=True),
+          f"seed {seed}: batched launch counts {counts}")
+    check(all(out["converged"]) and max(out["true_rel_residual"]) < 1e-5,
+          f"seed {seed}: batched solve converged {out['converged']}, true rel-residuals "
+          f"{out['true_rel_residual']}")
+    solo = [bicgstab.solve_distributed(mesh, cf, b[i], **kw) for i in range(MAIN_NRHS)]
+    out["solo_iterations"] = [int(r.iterations) for r in solo]
+    out["per_rhs_bitwise"] = [bool(rb.x[i].equal(r.x)) and its[i] == int(r.iterations)
+                              and bool(rb.rel_residual[i].equal(r.rel_residual))
+                              for i, r in enumerate(solo)]
+    check(all(out["per_rhs_bitwise"]),
+          f"seed {seed}: batched RHS not bitwise their solo solves {out['per_rhs_bitwise']}")
+    r1 = bicgstab.solve_distributed(mesh, cf, b[:1], **kw)
+    out["b1_bitwise"] = (bool(r1.x[0].equal(solo[0].x))
+                         and int(r1.iterations[0]) == int(solo[0].iterations))
+    check(out["b1_bitwise"], f"seed {seed}: a (1,)+shape solve is not the unbatched one")
+    return out
+
+
+def ref_fused_default(torch, seed: int, fused_iterations: int) -> dict:
+    """solve_ref_fused at the default cell, f32, tol 1e-6."""
+    from repro_torch.core import bicgstab, stencil
+    from repro_torch.launch import solve
+
+    _, cf, b = solve.manufactured_system(None, stencil.STAR7, DEFAULT_MESH, seed=seed,
+                                         device=torch.device("cuda"))
+    res = bicgstab.solve_ref_fused(cf, b, tol=1e-6, maxiter=200)
+    out = dict(seed=seed, iterations=int(res.iterations), converged=bool(res.converged),
+               fused_iterations=fused_iterations,
+               true_rel_residual=solve._true_rel_residual(cf, res.x, b))
+    check(out["converged"] and out["true_rel_residual"] < 1e-5
+          and abs(out["iterations"] - fused_iterations) <= 2,
+          f"seed {seed}: solve_ref_fused {out}")
+    return out
+
+
+def ref_fused_paper_mesh(torch, iters: int = MAIN_ITERS) -> tuple[dict, dict]:
+    """solve_ref_fused at 608x608x1536 in bf16 (f32 SpMV accumulation) for
+    ``iters`` iterations at tol 0; returns (result, launch counts)."""
+    from repro_torch.core import bicgstab, stencil
+    from repro_torch.kernels import launch_counts, reset_launch_counts
 
     dev = torch.device("cuda")
     cf = stencil.convection_diffusion(PAPER_MESH, device=dev)
@@ -386,13 +655,40 @@ def profile_paper_mesh(torch, iters: int = PROFILE_ITERS) -> dict:
     b = stencil.rhs_for_solution(cf, x).to(torch.bfloat16)
     cf = cf.astype(torch.bfloat16)
     del x
-    kw = dict(tol=0.0, policy=precision.MIXED, backend="fused")
-    mesh = make_mesh_for_devices()
-    bicgstab.solve_distributed(mesh, cf, b, maxiter=1, **kw)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = bicgstab.solve_ref_fused(cf, b, tol=0.0, maxiter=iters)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    moved = ref_fused_iteration_bytes(PAPER_MESH, 2)
+    ms = dt / max(int(res.iterations), 1) * 1e3
+    out = dict(phase="ref_fused_paper_mesh", shape=list(PAPER_MESH), dtype="bfloat16",
+               iterations=int(res.iterations), rel_residual=float(res.rel_residual),
+               ms_per_iter=ms, bytes_per_iter=moved, gb_per_s=moved / (ms * 1e-3) / 1e9,
+               bound_ms_per_iter=moved / PEAK_BYTES_PER_S * 1e3, launches=counts)
+    want = {k: 0 for k in KERNELS}
+    want.update(stencil7_dot=2 * iters, update_xr_dots=iters, update_p=iters)
+    check(counts == want, f"solve_ref_fused launch counts {counts} != {want}")
+    check(out["iterations"] == iters and math.isfinite(out["rel_residual"])
+          and out["rel_residual"] < 1, f"solve_ref_fused at the paper mesh: {out}")
+    return out, counts
+
+
+def profile_window(torch, run) -> dict:
+    """Device time by kernel over ``run()`` (torch.profiler, CUDA activity)
+    and the card's idle share of the window; ``run`` once first, outside
+    the window, so the window holds only the steady loop."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        bicgstab.solve_distributed(mesh, cf, b, maxiter=iters, **kw)
+        run()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
@@ -401,8 +697,38 @@ def profile_paper_mesh(torch, iters: int = PROFILE_ITERS) -> dict:
             kernels[e.key[:120]] = dict(count=e.count, ms=e.self_device_time_total / 1e3)
     busy = sum(k["ms"] for k in kernels.values())
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:16])
-    return dict(phase="profile", iterations=iters, window_ms=window_ms, busy_ms=busy,
-                idle_share=1 - busy / window_ms, kernels_by_device_ms=top)
+    return dict(window_ms=window_ms, busy_ms=busy, idle_share=1 - busy / window_ms,
+                kernels_by_device_ms=top)
+
+
+def profile_paths(torch, iters: int = PROFILE_ITERS) -> list[dict]:
+    """A few ``bf16_mixed`` iterations of each measured path under the
+    profiler: phase 4's solve at the paper mesh, phase 5's batched solve at
+    608^3 x 4, and phase 7's ``solve_ref_fused`` at the paper mesh."""
+    from repro_torch.core import bicgstab, precision, stencil
+    from repro_torch.launch.mesh import make_mesh_for_devices
+
+    dev = torch.device("cuda")
+    mesh = make_mesh_for_devices()
+    out = []
+    for path, shape, nrhs in (("paper_mesh", PAPER_MESH, 1), ("batched", JOULE_MESH, MAIN_NRHS),
+                              ("ref_fused", PAPER_MESH, 1)):
+        torch.cuda.empty_cache()
+        cf = stencil.convection_diffusion(shape, device=dev)
+        xshape = (nrhs,) + shape if nrhs > 1 else shape
+        x = torch.randn(xshape, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+        b = stencil.rhs_for_solution(cf, x).to(torch.bfloat16)
+        cf = cf.astype(torch.bfloat16)
+        del x
+        if path == "ref_fused":
+            run = lambda: bicgstab.solve_ref_fused(cf, b, tol=0.0, maxiter=iters)
+        else:
+            run = lambda: bicgstab.solve_distributed(mesh, cf, b, tol=0.0, maxiter=iters,
+                                                     policy=precision.MIXED, backend="fused")
+        out.append(dict(phase="profile", path=path, shape=list(shape), nrhs=nrhs,
+                        iterations=iters, **profile_window(torch, run)))
+        del cf, b, run
+    return out
 
 
 def main(argv=None) -> int:
@@ -412,7 +738,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace a few paper-mesh iterations with torch.profiler")
+                    help="also trace a few iterations of each measured path with "
+                         "torch.profiler")
     ap.add_argument("--out", type=Path, default=Path("build/chip_smoke.json"),
                     help="where the full JSON record goes (relative to the checkout)")
     args = ap.parse_args(argv)
@@ -441,17 +768,23 @@ def main(argv=None) -> int:
     emit(record["build"])
     emit(dict(phase="ptxas", kernels=ptxas_summary(lib_path.with_suffix(".log").read_text())))
 
-    # -- phase 2: kernels vs plain versions, then times at the paper mesh ------
+    # -- phase 2: kernels vs plain versions, then times at the paths' shapes ---
     check_kernels(torch)
     times = check_and_time_paper_mesh(torch)
+    times["batched"] = check_and_time_batched(torch)
+    sizes = ([math.prod(s) for s in CHECK_SHAPES] + [math.prod(PAPER_MESH)]
+             + [math.prod(JOULE_MESH)])
     record["kernels_vs_plain"] = dict(
         shapes=[list(s) for s in CHECK_SHAPES] + [list(PAPER_MESH)],
-        dot_tol_over_sum_abs={str(n): dot_tol(n) for n in
-                              (math.prod(s) for s in CHECK_SHAPES + [PAPER_MESH])},
+        batches=list(CHECK_BATCHES), batched_shape=[MAIN_NRHS, *JOULE_MESH],
+        dot_tol_over_sum_abs={str(n): dot_tol(n) for n in sizes},
         max_abs_err=err, dot_err_over_sum_abs=dot_rel, min_plain_dot_over_tol=dot_signal)
     emit(dict(phase="kernels_vs_plain", **record["kernels_vs_plain"]))
     record["kernel_times"] = times
-    emit(dict(phase="kernel_times", shape=list(PAPER_MESH), dtype="bfloat16", **times))
+    emit(dict(phase="kernel_times", shape=list(PAPER_MESH), dtype="bfloat16",
+              bf16=times["bf16"], dot_mixed_f32=times["dot_mixed_f32"]))
+    emit(dict(phase="kernel_times_batched", shape=[MAIN_NRHS, *JOULE_MESH], dtype="bfloat16",
+              **times["batched"]))
 
     # -- phase 3: convergence at the CLI's default problem, f32 ---------------
     # One seed's count moves by up to 2 with the dots' summation order alone
@@ -502,18 +835,55 @@ def main(argv=None) -> int:
           f"paper-mesh launch counts {counts} != {expected_counts(res['iterations'])}")
 
     if args.profile:
-        torch.cuda.empty_cache()
-        record["profile"] = profile_paper_mesh(torch)
-        emit(record["profile"])
+        record["profile"] = profile_paths(torch)
+        for prof in record["profile"]:
+            emit(prof)
+
+    # -- phase 5: the batched main path, 608^3 x 4 RHS, bf16_mixed ------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res5, counts5 = run_cli(["--mesh", *(str(s) for s in JOULE_MESH), "--nrhs", str(MAIN_NRHS),
+                             "--backend", "fused", "--policy", "bf16_mixed", "--tol", "0",
+                             "--maxiter", str(MAIN_ITERS)])
+    moved = iteration_bytes(JOULE_MESH, 2, nrhs=MAIN_NRHS)
+    res5.update(bytes_per_iter=moved, ms_per_rhs_iter=res5["ms_per_iter"] / MAIN_NRHS,
+                gb_per_s=moved / (res5["ms_per_iter"] * 1e-3) / 1e9,
+                bound_ms_per_iter=moved / PEAK_BYTES_PER_S * 1e3,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts5)
+    record["batched"] = res5
+    emit(dict(phase="batched", **res5))
+    resid = res5["rel_residual"] + res5["true_rel_residual"]
+    check(all(math.isfinite(v) and v < 1 for v in resid), f"batched residuals {resid}")
+    check(res5["iterations"] == [MAIN_ITERS] * MAIN_NRHS and not any(res5["breakdown"]),
+          f"batched path ran {res5['iterations']} iterations (breakdown {res5['breakdown']})")
+    check(counts5 == expected_counts(MAIN_ITERS, batched=True),
+          f"batched launch counts {counts5} != {expected_counts(MAIN_ITERS, batched=True)}")
+
+    # -- phase 6: batched semantics at the default cell ------------------------
+    torch.cuda.empty_cache()
+    record["batched_semantics"] = [batched_semantics(torch, seed)
+                                   for seed in range(PHASE3_SEEDS)]
+    emit(dict(phase="batched_semantics", runs=record["batched_semantics"]))
+
+    # -- phase 7: solve_ref_fused ------------------------------------------------
+    ref_default = [ref_fused_default(torch, r["seed"], r["fused_iterations"]) for r in runs]
+    emit(dict(phase="ref_fused_default", runs=ref_default))
+    torch.cuda.empty_cache()
+    res7, counts7 = ref_fused_paper_mesh(torch)
+    emit(res7)
+    record["ref_fused"] = dict(default=ref_default, paper_mesh=res7)
 
     # -- the kernels line ------------------------------------------------------
+    path_counts = {"paper_mesh": counts, "batched": counts5, "ref_fused": counts7}
+    all_times = {**times["bf16"], **times["batched"]}
     kernels = []
-    for name, (src, replaces) in KERNELS.items():
-        t = times["bf16"][name]
+    for name, (src, replaces, path) in KERNELS.items():
+        t = all_times[name]
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                            launches=counts[name], max_abs_err=err[name], ms=t["ms"],
-                            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                            launches=path_counts[path][name], max_abs_err=err[name],
+                            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                             bound_by=t["bound_by"], library_ms=t["library_ms"]))
+        check(kernels[-1]["launches"] > 0, f"{name}: no launch on its path ({path})")
     record["kernels"] = kernels
     record["failures"] = failures
     record["seconds"] = time.perf_counter() - t_start

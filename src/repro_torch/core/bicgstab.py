@@ -6,7 +6,13 @@ Counterpart of ``repro/core/bicgstab.py``:
   ``backend="fused"`` the same solve through the kernels);
 * :func:`solve_distributed`: the paper's run, every rank executing the whole
   Krylov iteration on its block.  This slice runs it on the one-rank fabric;
-  a mesh with more ranks raises until the ``torch.distributed`` slice lands.
+  a mesh with more ranks raises until the ``torch.distributed`` slice lands;
+* :func:`solve_ref_fused`: one block through the 7-point SpMV+dot epilogue
+  kernels and the fused update passes (the per-chip reference schedule).
+
+``b`` of shape ``coeffs.shape`` is one right-hand side; ``(B,) +
+coeffs.shape`` is a batch of B solved as one block solve, with per-RHS
+iteration counts and ``[B]`` results.
 """
 
 from __future__ import annotations
@@ -23,6 +29,13 @@ from repro_torch.core.solvers.common import SolveResult
 from repro_torch.core.stencil import StencilCoeffs
 
 
+def _check_rhs(coeffs: StencilCoeffs, b: torch.Tensor) -> None:
+    nb = b.ndim - coeffs.ndim
+    if nb not in (0, 1) or tuple(b.shape[nb:]) != coeffs.shape:
+        raise ValueError(f"b must have shape {coeffs.shape} or (B,) + {coeffs.shape}, "
+                         f"got {tuple(b.shape)}")
+
+
 def solve_ref(coeffs: StencilCoeffs, b: torch.Tensor, x0: torch.Tensor | None = None, *,
               tol: float = 1e-6, maxiter: int = 200, policy: Policy = F32,
               record_history: bool = False, solver: str = "bicgstab",
@@ -30,6 +43,7 @@ def solve_ref(coeffs: StencilCoeffs, b: torch.Tensor, x0: torch.Tensor | None = 
               schedule: str | None = None) -> SolveResult:
     """Single-address-space solve; ``backend="fused"`` runs it through the
     kernels on a 1x1 fabric (every collective degenerate)."""
+    _check_rhs(coeffs, b)
     op = make_operator(backend, coeffs, policy=policy, schedule=schedule)
     M = build_precond(get_precond_config(precond), op)
     return get_solver(solver)(op, b, x0, tol=tol, maxiter=maxiter, policy=policy,
@@ -56,11 +70,53 @@ def solve_distributed(mesh, coeffs: StencilCoeffs, b: torch.Tensor,
     fabric = FabricAxes.from_mesh(mesh)
     if fabric.size > 1:
         raise NotImplementedError("multi-rank solve (torch.distributed): next slice")
-    if b.ndim != coeffs.ndim:
-        raise NotImplementedError("many-RHS (batched) solves: next slice")
+    _check_rhs(coeffs, b)
     cf = coeffs.astype(policy.storage)
     op = make_operator(backend, cf, fabric, policy=policy, schedule=sched,
                        fused_reductions=fused_reductions)
     M = build_precond(get_precond_config(precond), op)
     return get_solver(solver)(op, b, x0, tol=tol, maxiter=maxiter, policy=policy,
                               record_history=record_history, precond=M)
+
+
+def solve_ref_fused(coeffs: StencilCoeffs, b: torch.Tensor, *, tol: float = 1e-6,
+                    maxiter: int = 200) -> SolveResult:
+    """BiCGStab on one block through the fused schedule: the 7-point SpMV
+    with its dot epilogue twice per iteration, the inline ``q``, then the
+    fused ``x``/``r`` update with its dots and the ``p`` update.
+
+    Counterpart of ``repro/core/bicgstab.py:solve_ref_fused``, pass for
+    pass: no ``safe_div`` (no breakdown test), the relative residual read
+    on the host each iteration and the loop left once it is below ``tol``,
+    ``iterations`` the count of the last iteration run.  It runs on the
+    device of ``b``; ``coeffs`` must be the unit-diagonal star7 in ``b``'s
+    dtype, and the SpMV accumulates in f32.
+    """
+    from repro_torch.kernels.fused_iter import update_p, update_xr_dots
+    from repro_torch.kernels.stencil_nd.fused import stencil7_dot, stencil7_two_dots
+
+    if b.ndim != coeffs.ndim:
+        raise ValueError("solve_ref_fused takes one right-hand side")
+    x = torch.zeros_like(b)
+    r = p = r0 = b
+    bf = b.to(torch.float32).reshape(-1)
+    bnorm2 = torch.dot(bf, bf)
+    del bf
+    rho = bnorm2
+    n_iter, rel = 0, 1.0
+    for n_iter in range(1, maxiter + 1):
+        s, r0s = stencil7_dot(coeffs, p, r0)                       # pass 1
+        alpha = rho / r0s
+        q = r - alpha.to(r.dtype) * s                               # pass 2
+        y, qy, yy = stencil7_two_dots(coeffs, q)                    # pass 3
+        omega = qy / yy
+        x, r, rho_new, rr = update_xr_dots(alpha, omega, x, p, q, y, r0)   # pass 4
+        beta = (alpha / omega) * (rho_new / rho)
+        p = update_p(beta, omega, r, p, s)                          # pass 5
+        rho = rho_new
+        rel = float(torch.sqrt(rr / bnorm2))
+        if rel < tol:
+            break
+    return SolveResult(x, torch.tensor(n_iter, dtype=torch.int32),
+                       torch.tensor(rel, dtype=torch.float32), torch.tensor(rel < tol),
+                       torch.tensor(False))

@@ -19,6 +19,11 @@ Backends (:data:`BACKENDS`):
 
 On the one-rank fabric every AllReduce is the identity; an axis split over
 more ranks raises until the ``torch.distributed`` slice lands.
+
+Every backend takes a batch of right-hand sides: an operand with one axis
+more than the coefficients (``nb = v.ndim - coeffs.ndim``) yields ``[B]``
+dot partials, one sync point stacks them to ``[k, B]``, and the ``fused``
+backend runs the batched kernels.
 """
 
 from __future__ import annotations
@@ -79,10 +84,15 @@ def _fabric_axis_names(fabric: FabricAxes) -> tuple[str, ...]:
     return tuple(a for a, n in pairs if a is not None and n > 1)
 
 
-def _make_reductions(names: tuple[str, ...], fused_reductions: bool):
+def _make_reductions(names: tuple[str, ...], fused_reductions: bool,
+                     mesh_ndim: int | None = None):
     """(dots, reduce_partials, reduce_max) over the named fabric axes: one
     AllReduce per sync point (fused) or per dot (the paper's separate
-    schedule).  On one rank (no names) each AllReduce is the identity."""
+    schedule).  On one rank (no names) each AllReduce is the identity.
+
+    ``mesh_ndim`` enables the batch axis: operands of higher rank give
+    per-RHS ``[B]`` partials, and a sync point reduces the stacked
+    ``[k, B]`` array at once."""
     if names:
         raise NotImplementedError("multi-rank AllReduce (torch.distributed): next slice")
 
@@ -97,7 +107,8 @@ def _make_reductions(names: tuple[str, ...], fused_reductions: bool):
             return torch.stack([psum(torch.as_tensor(p).to(torch.float32)) for p in ps])
 
     def dots(pairs, policy):
-        return reduce_partials([local_partial(a, b, policy) for a, b in pairs])
+        return reduce_partials([local_partial(a, b, policy, mesh_ndim=mesh_ndim)
+                                for a, b in pairs])
 
     def reduce_max(x):
         return x
@@ -112,7 +123,7 @@ def reference_operator(coeffs: StencilCoeffs, *, policy: Policy = F32,
     return LinearOperator(
         name="reference", coeffs=cf, policy=policy,
         apply=lambda v: apply_ref(cf, v, policy=policy),
-        dots=lambda pairs, policy: local_dots(pairs, policy),
+        dots=lambda pairs, policy: local_dots(pairs, policy, mesh_ndim=cf.ndim),
         reduce_partials=_identity_reduce,
         reduce_max=lambda x: x,
         schedule=get_schedule(schedule),
@@ -127,7 +138,7 @@ def spmd_operator(coeffs: StencilCoeffs, fabric: FabricAxes | None = None, *,
     cf = coeffs.astype(policy.storage)
     sched = get_schedule(schedule)
     dots, reduce_partials, reduce_max = _make_reductions(
-        _fabric_axis_names(fabric), fused_reductions)
+        _fabric_axis_names(fabric), fused_reductions, mesh_ndim=cf.ndim)
     return LinearOperator(
         name="spmd", coeffs=cf, policy=policy,
         apply=lambda v: scheduled_apply(cf, v, fabric, policy=policy, schedule=sched),
@@ -141,8 +152,10 @@ def fused_operator(coeffs: StencilCoeffs, fabric: FabricAxes | None = None, *,
                    fused_reductions: bool = True, **_unused) -> LinearOperator:
     """Kernel backend: the halo exchange feeding the CUDA stencil kernel for
     the SpMV, and the fused_iter kernels for the vector updates and dot
-    partials; one BiCGStab iteration is kernels plus 3 sync points.  On CPU
-    tensors every kernel takes its plain version."""
+    partials; one BiCGStab iteration is kernels plus 3 sync points.  An
+    operand with a leading batch axis runs the batched kernels, all right-
+    hand sides in one launch.  On CPU tensors every kernel takes its plain
+    version."""
     from repro_torch.kernels.fused_iter import dot_mixed, update_p, update_q_dots, update_xr_dots
     from repro_torch.kernels.stencil_nd.ops import fused_local_apply
 
@@ -150,7 +163,7 @@ def fused_operator(coeffs: StencilCoeffs, fabric: FabricAxes | None = None, *,
     cf = coeffs.astype(policy.storage)
     sched = get_schedule(schedule)
     _dots, reduce_partials, reduce_max = _make_reductions(
-        _fabric_axis_names(fabric), fused_reductions)
+        _fabric_axis_names(fabric), fused_reductions, mesh_ndim=cf.ndim)
 
     cf_unit = StencilCoeffs(cf.diags)   # the kernel's unit-diagonal contract
     base_apply = lambda v: fused_local_apply(cf_unit, v, fabric, policy=policy,
@@ -166,15 +179,23 @@ def fused_operator(coeffs: StencilCoeffs, fabric: FabricAxes | None = None, *,
         def apply(v):
             return (base_apply(v).to(c) + dcorr * v.to(c)).to(policy.storage)
 
+    batched = lambda a: a.ndim > cf.ndim
+    dot_partial = lambda a, b: dot_mixed(a, b, batched=batched(a))
     return LinearOperator(
         name="fused", coeffs=cf, policy=policy,
         apply=apply,
-        dots=lambda pairs, policy: reduce_partials([dot_mixed(a, b) for a, b in pairs]),
+        dots=lambda pairs, policy: reduce_partials([dot_partial(a, b) for a, b in pairs]),
         reduce_partials=reduce_partials,
         reduce_max=reduce_max,
         schedule=sched,
-        fused=FusedOps(dot_partial=dot_mixed, update_q_dots=update_q_dots,
-                       update_xr_dots=update_xr_dots, update_p=update_p),
+        fused=FusedOps(
+            dot_partial=dot_partial,
+            update_q_dots=lambda alpha, r, s, y: update_q_dots(
+                alpha, r, s, y, batched=batched(r)),
+            update_xr_dots=lambda alpha, omega, x, p, q, y, r0: update_xr_dots(
+                alpha, omega, x, p, q, y, r0, batched=batched(x)),
+            update_p=lambda beta, omega, r, p, s: update_p(
+                beta, omega, r, p, s, batched=batched(r))),
     )
 
 

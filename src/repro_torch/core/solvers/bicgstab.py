@@ -13,6 +13,10 @@ algorithm:
     s = A p;                <r0, s>                      (sync point 1)
     y = A q;                <q, y>, <y, y>               (sync point 2)
     r+ = q - w y;           <r0, r+>, <r+, r+>           (sync point 3)
+
+Both loops take a batch of right-hand sides ``(B, ...)``: every scalar of
+the recurrence is then ``[B]``, aligned against the vectors by
+``bcast_scalar``, and ``run_krylov`` freezes each RHS at its exit.
 """
 
 from __future__ import annotations

@@ -4,10 +4,14 @@ the host loop every Krylov solver runs.
 Counterpart of ``repro/core/solvers/common.py``.  The JAX package runs its
 loops as ``lax.while_loop``/``lax.scan`` inside jit; here :func:`run_krylov`
 is a host loop over eager tensors.  Every scalar of the recurrence stays a
-0-d tensor on the device, so the loop's only wait on the card is one flag,
-``conv | brk``, read once per iteration.
+tensor on the device, so the loop's only wait on the card is one read per
+iteration: the flag ``conv | brk``, or for a batch the ``[B]`` active mask.
 
-The many-RHS batch axis (per-RHS freeze masks) is the next slice.
+Batched (many-RHS) solves carry per-RHS scalars (``[B]`` alpha, rho,
+res2, convergence and breakdown masks, an int32[B] iteration counter), and
+:func:`run_krylov` freezes each RHS at its exit state while the others
+iterate on, so per-RHS iteration counts are exact.  A ``B = 1`` batch is the
+unbatched solve bit for bit: the same ops run on a leading axis of extent 1.
 """
 
 from __future__ import annotations
@@ -24,11 +28,11 @@ class SolveResult:
     """Uniform solver output."""
 
     x: torch.Tensor
-    iterations: torch.Tensor          # int32 0-d
-    rel_residual: torch.Tensor        # recurrence residual at exit
-    converged: torch.Tensor           # bool 0-d
-    breakdown: torch.Tensor           # bool 0-d: a recurrence denominator vanished
-    history: torch.Tensor | None = None  # f32[maxiter] relative residuals
+    iterations: torch.Tensor          # int32 0-d (int32[B] for a batched solve)
+    rel_residual: torch.Tensor        # recurrence residual at exit ([B])
+    converged: torch.Tensor           # bool 0-d ([B]): independent per-RHS masks
+    breakdown: torch.Tensor           # bool 0-d ([B]): a recurrence denominator vanished
+    history: torch.Tensor | None = None  # f32[maxiter(, B)] relative residuals
 
 
 EPS = 1e-30
@@ -76,45 +80,91 @@ def axpy_family(policy: Policy):
     return axpy, axpy2
 
 
-def local_partial(a, b, policy: Policy):
-    """One FMAC-style local inner-product partial."""
-    return policy.dot(a, b)
+def local_partial(a, b, policy: Policy, *, mesh_ndim: int | None = None):
+    """One FMAC-style local inner-product partial, batch-aware.
+
+    With ``mesh_ndim`` given, operands whose rank exceeds it carry a leading
+    batch axis: each RHS slice gets its own ``policy.dot`` (the unbatched
+    summation order, so ``B = 1`` is bitwise the unbatched dot; one sum over
+    a ``(B, n)`` axis would sum in another order) and the partial is a
+    ``[B]`` row.
+    """
+    nb = 0 if mesh_ndim is None else a.ndim - mesh_ndim
+    if nb <= 0:
+        return policy.dot(a, b)
+    return torch.stack([policy.dot(a[i], b[i]) for i in range(a.shape[0])])
 
 
-def local_dots(pairs, policy: Policy) -> torch.Tensor:
-    """Single-address-space reduction: a stack of FMAC-style inner products."""
-    return torch.stack([local_partial(a, b, policy) for a, b in pairs])
+def local_dots(pairs, policy: Policy, *, mesh_ndim: int | None = None) -> torch.Tensor:
+    """Single-address-space reduction: a stack of FMAC-style inner products
+    (``[k]``, or ``[k, B]`` for batched operands)."""
+    return torch.stack([local_partial(a, b, policy, mesh_ndim=mesh_ndim) for a, b in pairs])
 
 
 def init_counters(conv0: torch.Tensor):
-    """(iteration counter, breakdown flag) for the carry."""
-    return 0, torch.zeros_like(conv0)
+    """(iteration counter, breakdown flag) for the carry: a host int and a 0-d
+    flag, or per RHS an int32[B] counter and a bool[B] flag on the device."""
+    if conv0.ndim == 0:
+        return 0, torch.zeros_like(conv0)
+    return torch.zeros(conv0.shape, dtype=torch.int32, device=conv0.device), \
+        torch.zeros_like(conv0)
+
+
+def _freeze_select(mask: torch.Tensor, new, old):
+    """``where(mask, new, old)`` with a ``bool[B]`` mask broadcast from the
+    leading (batch) axis, for ``(B, ...)`` vectors and ``[B]`` scalars alike."""
+    m = mask.reshape(mask.shape + (1,) * (new.ndim - mask.ndim))
+    return torch.where(m, new, old)
 
 
 def run_krylov(step, init, *, maxiter: int, bnorm2: torch.Tensor, record_history: bool):
     """Drive a Krylov ``step`` to convergence on the host.
 
     ``step(carry) -> carry`` advances one iteration; the carry contract is
-    ``(i, x, *state, res2, conv, brk)`` with ``i`` a host int and the last
-    three 0-d device tensors.  The loop stops at ``maxiter``, convergence or
-    breakdown, reading ``conv | brk`` once per iteration (its only sync).
+    ``(i, x, *state, res2, conv, brk)``, the last three on the device.  The
+    loop stops at ``maxiter``, convergence or breakdown, reading ``conv |
+    brk`` once per iteration (its only sync).
 
-    ``record_history`` returns the f32[maxiter] relative residual after each
-    iteration; iterations after the exit repeat the exit value, as the JAX
-    package's fixed-length frozen scan does.
+    A batched carry (``[B]`` flags) runs while any RHS is active, reading
+    the ``[B]`` active mask once per iteration.  An RHS that has stopped
+    keeps its exit state: the step's result is merged back per RHS with
+    ``where(active, new, old)``, but only in iterations that the mask shows
+    a stopped RHS in.  With every RHS active the merge would return ``new``
+    bit for bit, and would read and write every vector of the state once
+    more.
+
+    ``record_history`` returns the f32[maxiter(, B)] relative residual after
+    each iteration; iterations after an RHS's exit repeat its exit value, as
+    the JAX package's fixed-length frozen scan does.
     """
     rel = lambda c: torch.sqrt(c[-3] / torch.clamp(bnorm2, min=EPS))
+    batched = init[-2].ndim > 0
     carry = init
     hist = []
-    while carry[0] < maxiter and not bool(carry[-2] | carry[-1]):
-        carry = step(carry)
+    n = 0
+    while n < maxiter:
+        stopped = carry[-2] | carry[-1]
+        if not batched:
+            if bool(stopped):                        # the one sync per iteration
+                break
+            carry = step(carry)
+        else:
+            active = ~stopped
+            act = active.cpu()                       # the one sync per iteration
+            if not bool(act.any()):
+                break
+            new = step(carry)
+            carry = new if bool(act.all()) else tuple(
+                _freeze_select(active, a, b) for a, b in zip(new, carry))
+        n += 1
         if record_history:
             hist.append(rel(carry))
     if not record_history:
         return carry, None
     hist += [rel(carry)] * (maxiter - len(hist))      # the frozen tail
     if not hist:
-        return carry, torch.zeros(0, dtype=torch.float32, device=bnorm2.device)
+        return carry, torch.zeros((0,) + tuple(bnorm2.shape), dtype=torch.float32,
+                                  device=bnorm2.device)
     return carry, torch.stack(hist).to(torch.float32)
 
 
@@ -122,4 +172,5 @@ def finish(carry, bnorm2: torch.Tensor, history=None) -> SolveResult:
     """Assemble a SolveResult from a run_krylov final carry."""
     i, x, *_rest, res2, conv, brk = carry
     rel = torch.sqrt(res2 / torch.clamp(bnorm2, min=EPS))
-    return SolveResult(x, torch.tensor(i, dtype=torch.int32), rel, conv, brk, history=history)
+    its = i.to(torch.int32) if isinstance(i, torch.Tensor) else torch.tensor(i, dtype=torch.int32)
+    return SolveResult(x, its, rel, conv, brk, history=history)

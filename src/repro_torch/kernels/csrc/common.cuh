@@ -49,6 +49,10 @@ template <typename T> __device__ __forceinline__ float sub(float a, float b) {
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 4 * 132;
 
+// Right-hand sides of one batched launch: the streaming passes put the RHS on
+// the grid's y axis, whose extent is at most 65535.
+constexpr int kMaxBatch = 65535;
+
 inline int reduce_blocks(long long n) {
   long long b = (n + kThreads - 1) / kThreads;
   return (int)(b < kMaxBlocks ? b : kMaxBlocks);
@@ -110,10 +114,31 @@ __device__ __forceinline__ void block_sum(float (&v)[ND]) {
   }
 }
 
-// out[d] = sum over blocks b of part[b * ND + d]; one block of kThreads.
+// Grid-stride loop over n points (the streaming passes' fixed grid).
+#define REPRO_GRID_STRIDE(i, n)                                             \
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < (n); \
+       i += (int64_t)gridDim.x * kThreads)
+
+// Reduce a thread's chunked sums over the block and write the block's ND
+// partials to part[blockIdx.x * ND + d].
+template <int ND>
+__device__ __forceinline__ void store_partials(const ChunkedSum<ND>& acc, float* part) {
+  float v[ND];
+  acc.total(v);
+  block_sum<ND>(v);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int d = 0; d < ND; ++d) part[blockIdx.x * ND + d] = v[d];
+  }
+}
+
+// One block of kThreads per right-hand side b = blockIdx.x: out[d * B + b] =
+// sum over blocks k of part[(b * nblk + k) * ND + d], with B = gridDim.x.
+// Each RHS is summed in the same fixed order as a lone vector (B = 1).
 template <int ND>
 __global__ void __launch_bounds__(kThreads) sum_partials(const float* __restrict__ part, int nblk,
                                                          float* __restrict__ out) {
+  part += (int64_t)blockIdx.x * nblk * ND;
   float v[ND];
 #pragma unroll
   for (int d = 0; d < ND; ++d) v[d] = 0.0f;
@@ -124,7 +149,7 @@ __global__ void __launch_bounds__(kThreads) sum_partials(const float* __restrict
   block_sum<ND>(v);
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int d = 0; d < ND; ++d) out[d] = v[d];
+    for (int d = 0; d < ND; ++d) out[d * gridDim.x + blockIdx.x] = v[d];
   }
 }
 

@@ -1,4 +1,5 @@
-// Fused BiCGStab vector-update + inner-product passes.
+// Fused BiCGStab vector-update + inner-product passes, for one right-hand
+// side or a batch of B.
 //
 // Replace the TPU kernels of src/repro/kernels/fused_iter/kernel.py:
 //   update_q_dots_pallas  (_update_q_kernel):  q = r - st(a)*s;            <q,y>, <y,y>
@@ -6,9 +7,9 @@
 //                                              r' = q - st(w)*y;           <r0,r'>, <r',r'>
 //   update_p_pallas       (_update_p_kernel):  p' = r + st(b)*(p - st(w)*s)
 //   dot_mixed_pallas      (_dot_kernel):       sum of f32(st(a*b))
-// where st() rounds to the storage dtype.  The fused dots are taken in f32 from
-// the upcast values; dot_mixed rounds each product to the storage dtype first
-// (kernel.py:199).
+// in their unbatched and batched (batched=True) forms, where st() rounds to
+// the storage dtype.  The fused dots are taken in f32 from the upcast values;
+// dot_mixed rounds each product to the storage dtype first (kernel.py:199).
 //
 // Bound: device-memory bytes.  Words moved per point: update_q_dots 4
 // (r, s, y in; q out), update_xr_dots 7 (x, p, q, y, r0 in; x, r out),
@@ -17,36 +18,31 @@
 // of the same pass instead of another sweep; a fixed grid walks the vectors
 // grid-stride, each thread sums in chunks, and the partial sums reduce
 // without atomics (common.cuh), so the same inputs give the same bits on
-// every run.  The scalars come in by device pointer to a 0-d f32 tensor and
-// are rounded to storage here, so the solver loop never waits on the card to
+// every run.  The scalars come in by device pointer to f32 tensors and are
+// rounded to storage here, so the solver loop never waits on the card to
 // read them.
+//
+// Batch: the B right-hand sides lie back to back, n points each, and the grid
+// is (reduce_blocks(n), B) with blockIdx.y the RHS, which reads its own
+// scalars alpha[b] (omega[b], beta[b]).  Each RHS runs the very grid, chunks
+// and block tree of a lone vector, and sum_partials gives it one block of its
+// own, so every RHS's outputs, dots included, equal the unbatched launch on
+// that slice bit for bit.  The unbatched launch is the batched one with B = 1.
 #include "common.cuh"
 
 namespace repro {
-
-#define GRID_STRIDE(i, n)                                                   \
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < (n); \
-       i += (int64_t)gridDim.x * kThreads)
-
-template <int ND>
-__device__ __forceinline__ void store_partials(const ChunkedSum<ND>& acc, float* part) {
-  float v[ND];
-  acc.total(v);
-  block_sum<ND>(v);
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int d = 0; d < ND; ++d) part[blockIdx.x * ND + d] = v[d];
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     update_q_dots_kernel(const float* __restrict__ alpha, const T* __restrict__ r,
                          const T* __restrict__ s, const T* __restrict__ y, T* __restrict__ q,
                          float* __restrict__ part, int64_t n) {
-  const float a = rnd<T>(*alpha);
+  const int64_t off = (int64_t)blockIdx.y * n;
+  r += off, s += off, y += off, q += off;
+  part += (int64_t)blockIdx.y * gridDim.x * 2;
+  const float a = rnd<T>(alpha[blockIdx.y]);
   ChunkedSum<2> acc;
-  GRID_STRIDE(i, n) {
+  REPRO_GRID_STRIDE(i, n) {
     const float qi = sub<T>(to_f(r[i]), mul<T>(a, to_f(s[i])));
     q[i] = from_f<T>(qi);
     const float yi = to_f(y[i]);
@@ -62,9 +58,12 @@ __global__ void __launch_bounds__(kThreads)
                           const T* __restrict__ q, const T* __restrict__ y,
                           const T* __restrict__ r0, T* __restrict__ xo, T* __restrict__ ro,
                           float* __restrict__ part, int64_t n) {
-  const float a = rnd<T>(*alpha), w = rnd<T>(*omega);
+  const int64_t off = (int64_t)blockIdx.y * n;
+  x += off, p += off, q += off, y += off, r0 += off, xo += off, ro += off;
+  part += (int64_t)blockIdx.y * gridDim.x * 2;
+  const float a = rnd<T>(alpha[blockIdx.y]), w = rnd<T>(omega[blockIdx.y]);
   ChunkedSum<2> acc;
-  GRID_STRIDE(i, n) {
+  REPRO_GRID_STRIDE(i, n) {
     const float qi = to_f(q[i]);
     xo[i] = from_f<T>(add<T>(add<T>(to_f(x[i]), mul<T>(a, to_f(p[i]))), mul<T>(w, qi)));
     const float ri = sub<T>(qi, mul<T>(w, to_f(y[i])));
@@ -79,8 +78,10 @@ __global__ void __launch_bounds__(kThreads)
     update_p_kernel(const float* __restrict__ beta, const float* __restrict__ omega,
                     const T* __restrict__ r, const T* __restrict__ p, const T* __restrict__ s,
                     T* __restrict__ po, int64_t n) {
-  const float b = rnd<T>(*beta), w = rnd<T>(*omega);
-  GRID_STRIDE(i, n) {
+  const int64_t off = (int64_t)blockIdx.y * n;
+  r += off, p += off, s += off, po += off;
+  const float b = rnd<T>(beta[blockIdx.y]), w = rnd<T>(omega[blockIdx.y]);
+  REPRO_GRID_STRIDE(i, n) {
     po[i] = from_f<T>(add<T>(to_f(r[i]), mul<T>(b, sub<T>(to_f(p[i]), mul<T>(w, to_f(s[i]))))));
   }
 }
@@ -89,83 +90,90 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     dot_mixed_kernel(const T* __restrict__ a, const T* __restrict__ b, float* __restrict__ part,
                      int64_t n) {
+  const int64_t off = (int64_t)blockIdx.y * n;
+  a += off, b += off;
+  part += (int64_t)blockIdx.y * gridDim.x;
   ChunkedSum<1> acc;
-  GRID_STRIDE(i, n) { acc.add({mul<T>(to_f(a[i]), to_f(b[i]))}); }
+  REPRO_GRID_STRIDE(i, n) { acc.add({mul<T>(to_f(a[i]), to_f(b[i]))}); }
   store_partials<1>(acc, part);
 }
-
-#undef GRID_STRIDE
 
 }  // namespace repro
 
 extern "C" {
 
 // Blocks of the partial-sum pass over n points: the scratch buffer of a
-// dot-producing launch holds reduce_blocks(n) * n_dots floats.
+// dot-producing launch holds B * repro_reduce_blocks(n) * n_dots floats.
 int repro_reduce_blocks(long long n) { return repro::reduce_blocks(n); }
 
-// Every entry point returns a cudaError_t code (0 on success).  `partials`
-// is f32 scratch of repro_reduce_blocks(n) * n_dots floats; `out` receives
-// the n_dots f32 sums.
+// Every entry point runs one pass over B right-hand sides of n points each,
+// back to back, with B scalars of each kind (a 0-d scalar is B = 1), and
+// returns a cudaError_t code (0 on success).  `partials` is f32 scratch of
+// B * repro_reduce_blocks(n) * n_dots floats; `out` receives the n_dots x B
+// f32 sums, dot-major.
+
+#define REPRO_CHECK_SIZE(n, nb) \
+  if ((n) < 1 || (nb) < 1 || (nb) > repro::kMaxBatch) return (int)cudaErrorInvalidValue
 
 int repro_update_q_dots(int dtype, const void* alpha, const void* r, const void* s,
                         const void* y, void* q, void* partials, void* out, long long n,
-                        void* stream) {
+                        long long nb, void* stream) {
   using namespace repro;
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  const int nblk = reduce_blocks(n);
+  REPRO_CHECK_SIZE(n, nb);
+  const dim3 grid(reduce_blocks(n), (unsigned)nb);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) {
-    update_q_dots_kernel<float><<<nblk, kThreads, 0, st>>>(
+    update_q_dots_kernel<float><<<grid, kThreads, 0, st>>>(
         (const float*)alpha, (const float*)r, (const float*)s, (const float*)y, (float*)q,
         (float*)partials, n);
   } else if (dtype == kBF16) {
-    update_q_dots_kernel<bf16><<<nblk, kThreads, 0, st>>>(
+    update_q_dots_kernel<bf16><<<grid, kThreads, 0, st>>>(
         (const float*)alpha, (const bf16*)r, (const bf16*)s, (const bf16*)y, (bf16*)q,
         (float*)partials, n);
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  sum_partials<2><<<1, kThreads, 0, st>>>((const float*)partials, nblk, (float*)out);
+  sum_partials<2><<<(unsigned)nb, kThreads, 0, st>>>((const float*)partials, grid.x, (float*)out);
   return (int)cudaGetLastError();
 }
 
 int repro_update_xr_dots(int dtype, const void* alpha, const void* omega, const void* x,
                          const void* p, const void* q, const void* y, const void* r0, void* xo,
-                         void* ro, void* partials, void* out, long long n, void* stream) {
+                         void* ro, void* partials, void* out, long long n, long long nb,
+                         void* stream) {
   using namespace repro;
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  const int nblk = reduce_blocks(n);
+  REPRO_CHECK_SIZE(n, nb);
+  const dim3 grid(reduce_blocks(n), (unsigned)nb);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) {
-    update_xr_dots_kernel<float><<<nblk, kThreads, 0, st>>>(
+    update_xr_dots_kernel<float><<<grid, kThreads, 0, st>>>(
         (const float*)alpha, (const float*)omega, (const float*)x, (const float*)p,
         (const float*)q, (const float*)y, (const float*)r0, (float*)xo, (float*)ro,
         (float*)partials, n);
   } else if (dtype == kBF16) {
-    update_xr_dots_kernel<bf16><<<nblk, kThreads, 0, st>>>(
+    update_xr_dots_kernel<bf16><<<grid, kThreads, 0, st>>>(
         (const float*)alpha, (const float*)omega, (const bf16*)x, (const bf16*)p,
         (const bf16*)q, (const bf16*)y, (const bf16*)r0, (bf16*)xo, (bf16*)ro,
         (float*)partials, n);
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  sum_partials<2><<<1, kThreads, 0, st>>>((const float*)partials, nblk, (float*)out);
+  sum_partials<2><<<(unsigned)nb, kThreads, 0, st>>>((const float*)partials, grid.x, (float*)out);
   return (int)cudaGetLastError();
 }
 
 int repro_update_p(int dtype, const void* beta, const void* omega, const void* r, const void* p,
-                   const void* s, void* po, long long n, void* stream) {
+                   const void* s, void* po, long long n, long long nb, void* stream) {
   using namespace repro;
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  const int nblk = reduce_blocks(n);
+  REPRO_CHECK_SIZE(n, nb);
+  const dim3 grid(reduce_blocks(n), (unsigned)nb);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) {
-    update_p_kernel<float><<<nblk, kThreads, 0, st>>>(
+    update_p_kernel<float><<<grid, kThreads, 0, st>>>(
         (const float*)beta, (const float*)omega, (const float*)r, (const float*)p,
         (const float*)s, (float*)po, n);
   } else if (dtype == kBF16) {
-    update_p_kernel<bf16><<<nblk, kThreads, 0, st>>>(
+    update_p_kernel<bf16><<<grid, kThreads, 0, st>>>(
         (const float*)beta, (const float*)omega, (const bf16*)r, (const bf16*)p,
         (const bf16*)s, (bf16*)po, n);
   } else {
@@ -175,22 +183,24 @@ int repro_update_p(int dtype, const void* beta, const void* omega, const void* r
 }
 
 int repro_dot_mixed(int dtype, const void* a, const void* b, void* partials, void* out,
-                    long long n, void* stream) {
+                    long long n, long long nb, void* stream) {
   using namespace repro;
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  const int nblk = reduce_blocks(n);
+  REPRO_CHECK_SIZE(n, nb);
+  const dim3 grid(reduce_blocks(n), (unsigned)nb);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) {
-    dot_mixed_kernel<float><<<nblk, kThreads, 0, st>>>((const float*)a, (const float*)b,
+    dot_mixed_kernel<float><<<grid, kThreads, 0, st>>>((const float*)a, (const float*)b,
                                                        (float*)partials, n);
   } else if (dtype == kBF16) {
-    dot_mixed_kernel<bf16><<<nblk, kThreads, 0, st>>>((const bf16*)a, (const bf16*)b,
+    dot_mixed_kernel<bf16><<<grid, kThreads, 0, st>>>((const bf16*)a, (const bf16*)b,
                                                       (float*)partials, n);
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  sum_partials<1><<<1, kThreads, 0, st>>>((const float*)partials, nblk, (float*)out);
+  sum_partials<1><<<(unsigned)nb, kThreads, 0, st>>>((const float*)partials, grid.x, (float*)out);
   return (int)cudaGetLastError();
 }
+
+#undef REPRO_CHECK_SIZE
 
 }  // extern "C"

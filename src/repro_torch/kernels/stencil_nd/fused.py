@@ -1,0 +1,97 @@
+"""The 7-point SpMV with a dot epilogue (CUDA source: ``kernels/csrc/stencil7_dot.cu``).
+
+Counterpart of ``repro/kernels/stencil_nd/fused.py``'s dot epilogues, the
+kernel behind ``core/bicgstab.py:solve_ref_fused``:
+
+* :func:`stencil7_dot`: ``s = A p`` and ``<r0, s>`` (BiCGStab's sync point 1);
+* :func:`stencil7_two_dots`: ``y = A q``, ``<q, y>`` and ``<y, y>`` (sync point 2).
+
+The SpMV accumulates in ``accum_dtype`` (f32 by default, as in the JAX
+package) and rounds to the storage dtype for the write; the dots are taken
+in f32 from the unrounded accumulator.  With the same accumulation dtype the
+vector equals the stencil_nd kernel's bit for bit.  The block is zero-padded
+here (``F.pad``), as the JAX wrapper pads before its kernel, and
+:func:`stencil7_dots_padded` is the kernel's own wrapper on the padded
+block: a CPU tensor takes the plain version
+(``ref.stencil7_dots_padded_ref``), a CUDA tensor launches the kernel or
+raises.  The JAX package's ``fused_ring_apply`` only reuses the stencil
+kernel, and comes with the tuning cache.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.stencil import STAR7, StencilCoeffs
+from repro_torch.kernels import _build
+from repro_torch.kernels.stencil_nd.ref import stencil7_dots_padded_ref
+
+#: kernel launches in this process (CUDA tensors only), both variants
+launches = {"stencil7_dot": 0}
+
+
+def stencil7_dots_padded(vp: torch.Tensor, w: torch.Tensor, cfs: list[torch.Tensor], *,
+                         two_dots: bool, accum_dtype: torch.dtype = torch.float32):
+    """The kernel on a 1-padded block: ``(u, <w,u>, <u,u> or None)`` with
+    ``u = A v``, ``vp`` the ``(bx+2, by+2, Z+2)`` iterate and ``cfs`` the six
+    ``(bx, by, Z)`` fields in STAR7 order, all of one dtype."""
+    if vp.device.type == "cpu":
+        return stencil7_dots_padded_ref(vp, w, cfs, STAR7.offsets, two_dots=two_dots,
+                                        accum_dtype=accum_dtype)
+    if vp.device.type != "cuda":
+        raise ValueError(f"stencil7 dots run on cpu or cuda tensors, got {vp.device}")
+    shape = tuple(s - 2 for s in vp.shape)
+    if vp.ndim != 3 or min(shape) < 1 or len(cfs) != 6:
+        raise ValueError(f"stencil7 dots take one 1-padded 3-D block and 6 fields; got "
+                         f"{tuple(vp.shape)} and {len(cfs)} fields")
+    for t in (vp, w, *cfs):
+        if t.dtype != vp.dtype or t.device != vp.device or not t.is_contiguous():
+            raise ValueError(f"stencil7 dots take contiguous tensors of one dtype and device; "
+                             f"got {t.dtype} on {t.device} vs {vp.dtype} on {vp.device}")
+    for t in (w, *cfs):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"w and the fields must be {shape}, got {tuple(t.shape)}")
+    lib = _build.load_library()
+    n_dots = 2 if two_dots else 1
+    u = torch.empty(shape, dtype=vp.dtype, device=vp.device)
+    part = torch.empty(lib.repro_reduce_blocks(u.numel()) * n_dots, dtype=torch.float32,
+                       device=vp.device)
+    out = torch.empty(n_dots, dtype=torch.float32, device=vp.device)
+    ptrs = (ctypes.c_uint64 * 6)(*(c.data_ptr() for c in cfs))
+    code = lib.repro_stencil7_dot(
+        _build.dtype_code(vp.dtype), _build.dtype_code(accum_dtype), vp.data_ptr(),
+        w.data_ptr(), ctypes.addressof(ptrs), n_dots, *shape, u.data_ptr(),
+        part.data_ptr(), out.data_ptr(), _build.stream_handle(vp.device))
+    _build.check_launch(lib, code, "stencil7_dot")
+    launches["stencil7_dot"] += 1
+    return u, out[0], out[1] if two_dots else None
+
+
+def _call(coeffs: StencilCoeffs, v: torch.Tensor, w: torch.Tensor, *, two_dots: bool,
+          accum_dtype: torch.dtype):
+    if coeffs.spec != STAR7 or coeffs.diag is not None:
+        raise ValueError("the dot-epilogue kernel is the unit-diagonal 7-point stencil; got "
+                         f"{coeffs.spec.name}{'' if coeffs.diag is None else ' (raw diagonal)'}")
+    cfs = [coeffs.diags[n] for n in STAR7.names]
+    for t in (w, *cfs):
+        if t.dtype != v.dtype or t.shape != v.shape:
+            raise ValueError(f"coefficients and w must match v ({v.dtype}{tuple(v.shape)}); "
+                             f"got {t.dtype}{tuple(t.shape)}")
+    return stencil7_dots_padded(F.pad(v, (1, 1) * 3), w, cfs, two_dots=two_dots,
+                                accum_dtype=accum_dtype)
+
+
+def stencil7_dot(coeffs: StencilCoeffs, p: torch.Tensor, r0: torch.Tensor, *,
+                 accum_dtype: torch.dtype = torch.float32):
+    """s = A p, <r0, s> in one pass.  Returns (s, r0s partial)."""
+    s, d1, _ = _call(coeffs, p, r0, two_dots=False, accum_dtype=accum_dtype)
+    return s, d1
+
+
+def stencil7_two_dots(coeffs: StencilCoeffs, q: torch.Tensor, *,
+                      accum_dtype: torch.dtype = torch.float32):
+    """y = A q, <q, y>, <y, y> in one pass.  Returns (y, qy, yy)."""
+    return _call(coeffs, q, q, two_dots=True, accum_dtype=accum_dtype)

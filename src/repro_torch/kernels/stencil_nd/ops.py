@@ -1,9 +1,13 @@
 """Wrappers around the stencil kernel: padding, argument order, and the
 drop-in local apply that pairs the kernel with the depth-r halo exchange.
 
-Counterpart of ``repro/kernels/stencil_nd/ops.py``.  There is no tuning
-cache yet: the kernel runs at its one fixed tile, and any tile would give the
-same bits (each output is a canonical-order sum over the offsets).
+Counterpart of ``repro/kernels/stencil_nd/ops.py``.  An iterate with one
+leading axis more than the coefficients is a batch of right-hand sides
+(``nb = v.ndim - coeffs.ndim``, as in the JAX package): only the three mesh
+axes are padded, and the batched kernel runs them all in one launch.  There
+is no tuning cache yet: the kernel runs at its one fixed tile, and any tile
+would give the same bits (each output is a canonical-order sum over the
+offsets).
 """
 
 from __future__ import annotations
@@ -12,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.stencil import StencilCoeffs, StencilSpec
-from repro_torch.kernels.stencil_nd.kernel import stencil_nd
+from repro_torch.kernels.stencil_nd.kernel import stencil_nd, stencil_nd_batched
 
 
 def _spec_order(coeffs: StencilCoeffs, spec: StencilSpec) -> list[torch.Tensor]:
@@ -28,10 +32,18 @@ def _require_unit_diag(coeffs: StencilCoeffs) -> None:
             "deviation outside the kernel")
 
 
-def _require_unbatched(v: torch.Tensor, coeffs: StencilCoeffs) -> None:
-    if v.ndim != coeffs.ndim or coeffs.ndim != 3:
-        raise NotImplementedError("the stencil kernel takes one 3-D block; "
-                                  "the batched (many-RHS) form is the next slice")
+def _batch_rank(v: torch.Tensor, coeffs: StencilCoeffs) -> int:
+    """The iterate's batch rank (0 or 1) against 3-D coefficient fields."""
+    nb = v.ndim - coeffs.ndim
+    if coeffs.ndim != 3 or nb not in (0, 1):
+        raise ValueError(f"the stencil kernel takes a 3-D block or a batch of them; got "
+                         f"{tuple(v.shape)} against {coeffs.ndim}-D coefficients")
+    return nb
+
+
+def _kernel(nb: int):
+    """The unbatched or the batched kernel wrapper."""
+    return stencil_nd_batched if nb else stencil_nd
 
 
 def stencil_apply(coeffs: StencilCoeffs, v: torch.Tensor, *,
@@ -39,11 +51,11 @@ def stencil_apply(coeffs: StencilCoeffs, v: torch.Tensor, *,
                   accum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """u = A v on a local block, zero-Dirichlet at the block edges, any spec."""
     _require_unit_diag(coeffs)
-    _require_unbatched(v, coeffs)
+    nb = _batch_rank(v, coeffs)
     spec = spec or coeffs.spec
     r = spec.radius
-    return stencil_nd(F.pad(v, (r, r) * 3), _spec_order(coeffs, spec), spec.offsets,
-                      radius=r, accum_dtype=accum_dtype)
+    return _kernel(nb)(F.pad(v, (r, r) * 3), _spec_order(coeffs, spec), spec.offsets,
+                       radius=r, accum_dtype=accum_dtype)
 
 
 def ring_patch_apply(exchange, cf_list: list[torch.Tensor], spec: StencilSpec,
@@ -56,12 +68,14 @@ def ring_patch_apply(exchange, cf_list: list[torch.Tensor], spec: StencilSpec,
     from repro_torch.core.comm import boundary_regions
 
     r = spec.radius
+    pre = (slice(None),) * exchange.n_batch
     for reg in boundary_regions(exchange.shape, fabric, r):
         lo_hi = [(sl.start or 0, exchange.shape[i] if sl.stop is None else sl.stop)
                  for i, sl in enumerate(reg)]
-        sub_vp = exchange.padded[tuple(slice(lo, hi + 2 * r) for lo, hi in lo_hi)]
-        u[reg] = stencil_nd(sub_vp.contiguous(), [c[reg].contiguous() for c in cf_list],
-                            spec.offsets, radius=r, accum_dtype=accum_dtype)
+        sub_vp = exchange.padded[pre + tuple(slice(lo, hi + 2 * r) for lo, hi in lo_hi)]
+        u[pre + reg] = _kernel(exchange.n_batch)(
+            sub_vp.contiguous(), [c[reg].contiguous() for c in cf_list], spec.offsets,
+            radius=r, accum_dtype=accum_dtype)
     return u
 
 
@@ -85,11 +99,11 @@ def fused_local_apply(coeffs: StencilCoeffs, v: torch.Tensor, fabric, *, policy,
     r = spec.radius
     cf = coeffs.astype(policy.storage)
     vs = v.to(policy.storage)
-    _require_unbatched(vs, cf)
+    launch = _kernel(_batch_rank(vs, cf))
     cf_list = _spec_order(cf, spec)
 
     def kernel(vp):
-        return stencil_nd(vp, cf_list, spec.offsets, radius=r, accum_dtype=policy.compute)
+        return launch(vp, cf_list, spec.offsets, radius=r, accum_dtype=policy.compute)
 
     def patch_ring(exchange, u):
         return ring_patch_apply(exchange, cf_list, spec, u, fabric,

@@ -4,13 +4,16 @@
     PYTHONPATH=src python -m repro_torch.launch.solve --backend fused \
         --mesh 608 608 1536 --policy bf16_mixed --tol 0 --maxiter 30
     PYTHONPATH=src python -m repro_torch.launch.solve --device cpu --mesh 8 8 8 --policy f32
+    PYTHONPATH=src python -m repro_torch.launch.solve --device cpu --mesh 8 8 8 --nrhs 2
 
 Counterpart of ``python -m repro.launch.solve``, with its flag names and
 defaults: builds a diagonally dominant system of the requested stencil shape,
 solves it by BiCGStab through the chosen backend (``fused`` runs the CUDA
 kernels) and reports iterations, the recurrence and true residuals, and the
-time per iteration on the device it ran on.  It runs on the card unless
-``--device cpu`` is given, and refuses to start without one.
+time per iteration on the device it ran on.  ``--nrhs B`` solves B
+right-hand sides as one block solve and reports each RHS's numbers.  It runs
+on the card unless ``--device cpu`` is given, and refuses to start without
+one.
 """
 
 from __future__ import annotations
@@ -62,13 +65,16 @@ def build_problem(problem: str | None, spec: stencil.StencilSpec, shape, *,
 
 
 def manufactured_system(problem: str | None, spec: stencil.StencilSpec, shape, *,
-                        seed: int, device: torch.device):
+                        seed: int, device: torch.device, nrhs: int = 1):
     """(problem name, f32 coefficients, f32 right-hand side ``b = A x_true``):
-    the system is seeded by ``seed``, the solution ``x_true`` by ``seed + 1``."""
+    the system is seeded by ``seed``, the solution ``x_true`` by ``seed + 1``.
+    ``nrhs > 1`` gives a batch ``(nrhs,) + shape`` of solutions from the same
+    generator; ``nrhs == 1`` stays unbatched."""
     gen = torch.Generator(device=device).manual_seed(seed)
     problem, cf = build_problem(problem, spec, shape, generator=gen)
     gen_x = torch.Generator(device=device).manual_seed(seed + 1)
-    x_true = torch.randn(shape, generator=gen_x, device=device)
+    xshape = (nrhs,) + tuple(shape) if nrhs > 1 else tuple(shape)
+    x_true = torch.randn(xshape, generator=gen_x, device=device)
     return problem, cf, stencil.rhs_for_solution(cf, x_true)
 
 
@@ -91,8 +97,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--problem", default=None, choices=PROBLEMS,
                     help="default: convdiff for star7, seismic for deeper stars, "
                          "random for box")
-    ap.add_argument("--nrhs", type=int, default=1, choices=[1],
-                    help="right-hand sides per solve (the batched form is not ported yet)")
+    ap.add_argument("--nrhs", type=int, default=1,
+                    help="right-hand sides solved as one block (batched) Krylov solve; "
+                         "every sync point reduces the stacked [k, B] partials")
     ap.add_argument("--paper-separate-reductions", action="store_true",
                     help="paper-faithful: one AllReduce per dot product")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -106,6 +113,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> dict:
     """Run the solve; returns the numbers it printed."""
     args = parse_args(argv)
+    if args.nrhs < 1:
+        raise SystemExit("--nrhs must be >= 1")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device (torch.cuda.is_available() is False); "
                          "pass --device cpu to run on the CPU")
@@ -117,18 +126,26 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _true_rel_residual(cf: stencil.StencilCoeffs, x: torch.Tensor, b: torch.Tensor) -> float:
+    """||b - A x|| / ||b||: A x in f32 through the plain apply, norms in f64."""
+    ax = stencil.apply_ref(cf.astype(torch.float32), x.to(torch.float32))
+    r = b.double() - ax.double()
+    del ax
+    return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b.double()))
+
+
 def run(args: argparse.Namespace, device: torch.device) -> dict:
     shape = tuple(args.mesh)
     spec = stencil.get_spec(args.stencil)
     pol = precision.get_policy(args.policy)
     mesh = make_mesh_for_devices()
     problem, cf, b = manufactured_system(args.problem, spec, shape, seed=args.seed,
-                                         device=device)
+                                         device=device, nrhs=args.nrhs)
     dev_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"problem {problem}/{spec.name} (radius {spec.radius}, {spec.n_points} points) "
           f"{shape} on fabric {mesh.shape} solver={args.solver} backend={args.backend} "
           f"schedule={args.schedule} precond={args.precond} policy={pol.name} "
-          f"device={dev_name}")
+          f"nrhs={args.nrhs} device={dev_name}")
 
     bs = b.to(pol.storage)
 
@@ -141,24 +158,31 @@ def run(args: argparse.Namespace, device: torch.device) -> dict:
     _sync(device)
     dt = time.perf_counter() - t0
     out = dict(problem=problem, stencil=spec.name, shape=list(shape), policy=pol.name,
-               backend=args.backend, device=dev_name, iterations=int(res.iterations),
-               converged=bool(res.converged), breakdown=bool(res.breakdown),
-               rel_residual=float(res.rel_residual), wall_s=dt)
-    out["ms_per_iter"] = dt / max(out["iterations"], 1) * 1e3
+               backend=args.backend, nrhs=args.nrhs, device=dev_name,
+               iterations=res.iterations.tolist(), converged=res.converged.tolist(),
+               breakdown=res.breakdown.tolist(), rel_residual=res.rel_residual.tolist(),
+               wall_s=dt)
+    most = max(out["iterations"]) if args.nrhs > 1 else out["iterations"]
+    out["ms_per_iter"] = dt / max(most, 1) * 1e3
     x = res.x
     del res, bs          # the solve's state is freed; x and b remain
 
-    # true residual in f32 through the plain apply, norms in f64
-    ax = stencil.apply_ref(cf.astype(torch.float32), x.to(torch.float32))
-    r = b.double() - ax.double()
-    del ax
-    out["true_rel_residual"] = float(torch.linalg.vector_norm(r)
-                                     / torch.linalg.vector_norm(b.double()))
-    del r
-    print(f"iterations: {out['iterations']}  converged: {out['converged']}")
-    print(f"recurrence rel-residual: {out['rel_residual']:.3e}")
-    print(f"true rel-residual (f32 check): {out['true_rel_residual']:.3e}")
-    print(f"wall time: {dt:.3f}s ({out['ms_per_iter']:.3f} ms/iter on {dev_name})")
+    # true residual, one RHS at a time (f64 temporaries of a whole batch
+    # would be B times as large)
+    if args.nrhs == 1:
+        out["true_rel_residual"] = _true_rel_residual(cf, x, b)
+        print(f"iterations: {out['iterations']}  converged: {out['converged']}")
+        print(f"recurrence rel-residual: {out['rel_residual']:.3e}")
+        print(f"true rel-residual (f32 check): {out['true_rel_residual']:.3e}")
+        print(f"wall time: {dt:.3f}s ({out['ms_per_iter']:.3f} ms/iter on {dev_name})")
+        return out
+    out["true_rel_residual"] = [_true_rel_residual(cf, x[i], b[i]) for i in range(args.nrhs)]
+    print(f"per-RHS iterations: {out['iterations']}")
+    print(f"per-RHS converged:  {out['converged']}")
+    print("recurrence rel-residuals:", [f"{v:.3e}" for v in out["rel_residual"]])
+    print("true rel-residuals (f32 check):", [f"{v:.3e}" for v in out["true_rel_residual"]])
+    print(f"wall time: {dt:.3f}s for {args.nrhs} RHS ({out['ms_per_iter']:.3f} ms/iter "
+          f"on {dev_name})")
     return out
 
 

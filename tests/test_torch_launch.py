@@ -36,8 +36,16 @@ def test_main_returns_what_it_printed(capsys):
     printed = capsys.readouterr().out
     assert res["converged"] and f"iterations: {res['iterations']}" in printed
     assert res["problem"] == "random" and res["true_rel_residual"] < 1e-5
+    # --nrhs 2: one block solve, per-RHS lines
+    res = solve.main(["--device", "cpu", "--backend", "fused", "--mesh", "8", "8", "8",
+                      "--policy", "f32", "--nrhs", "2"])
+    printed = capsys.readouterr().out
+    assert res["nrhs"] == 2 and all(res["converged"]) and len(res["iterations"]) == 2
+    assert max(res["true_rel_residual"]) < 1e-5
+    assert f"per-RHS iterations: {res['iterations']}" in printed
+    assert "true rel-residuals (f32 check):" in printed and "for 2 RHS" in printed
     with pytest.raises(SystemExit):
-        solve.main(["--device", "cpu", "--nrhs", "2"])
+        solve.main(["--device", "cpu", "--nrhs", "0"])
 
 
 def test_cpu_tensors_launch_no_kernel():
@@ -50,8 +58,9 @@ def test_cpu_tensors_launch_no_kernel():
     res = bicgstab.solve_ref(cf, b, tol=1e-5, maxiter=50, backend="fused",
                              policy=precision.MIXED)
     assert int(res.iterations) > 0
-    assert set(launch_counts()) == {"stencil_nd", "update_q_dots", "update_xr_dots",
-                                    "update_p", "dot_mixed"}
+    unbatched = {"stencil_nd", "update_q_dots", "update_xr_dots", "update_p", "dot_mixed"}
+    assert set(launch_counts()) == (unbatched | {n + "_batched" for n in unbatched}
+                                    | {"stencil7_dot"})
     assert not any(launch_counts().values()), launch_counts()
 
 
