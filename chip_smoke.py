@@ -16,16 +16,20 @@ Phases (one line of output each, JSON where it carries numbers):
    with distinct per-RHS scalars, each RHS's vectors and dots also against
    the unbatched kernel on its slice, bit for bit; and the star7 SpMV with
    its dot epilogue (K6), whose vector must also equal K1's with f32
-   accumulation.  Then at each path's own shapes: K1-K5 and K6 at
-   608x608x1536 in bf16 (K1 with bf16 accumulation, K6 with f32), K1b-K5b at
-   608^3 x 4 in bf16.  Vector outputs must be bitwise equal, dot partials
-   within log2(n) x eps_f32 x sum|a_i b_i| (both sides sum the same exact
-   f32 products; only the order differs).  Each kernel's time on those
+   accumulation; then K1 and K1b (B = 1 and 3) at the overlap schedule's
+   ring slabs, 1x29x17, 37x1x17 and 37x29x1 for star7 and box27 and 4x29x17
+   for star25.  Then at each path's own shapes: K1-K5 and K6 at
+   608x608x1536 in bf16 (K1 with bf16 accumulation, K6 with f32, K5 also on
+   a self-dot), K1b-K5b at 608^3 x 4 in bf16.  Vector outputs must be
+   bitwise equal, dot partials within log2(n) x eps_f32 x sum|a_i b_i| (both
+   sides sum the same exact f32 products; only the order differs).  Each kernel's time on those
    inputs (CUDA events, warmed up, mean of 20 launches) goes beside its plain
    version's time, its bound at 3.35 TB/s, a library call's time where one
    PyTorch call computes the same function (K5: ``torch.dot``, K5b:
    ``torch.linalg.vecdot``), the batched kernels beside 4 unbatched launches
-   on the same slices, and K6 beside K1 + K5 on the same inputs;
+   on the same slices, and K6 beside K1 + K5 on the same inputs; K1 and K1b
+   (4 RHS) for box27 and star25 at 256^3 beside their bounds; and the
+   redesigned kernels (K1, K1b, K5, K5b) beside their earlier times;
 3. the CLI's default problem (48x48x32 convdiff star7, f32, tol 1e-6)
    through ``--backend fused`` for seeds 0-4: each must converge to a true
    relative residual below 1e-5, with the kernels' launch counts, and its
@@ -50,7 +54,11 @@ Phases (one line of output each, JSON where it carries numbers):
    iteration count equal an unbatched fused solve of that RHS bit for bit,
    and a (1,)+shape solve equals the unbatched one bit for bit;
 7. ``solve_ref_fused``: at the default cell, f32, seeds 0-4, it converges
-   within 2 iterations of phase 3's fused count; at 608x608x1536 in bf16 it
+   and, like the fused path in phase 3, its iteration count stays within 1
+   of the ``spmd`` backend's on the median seed and within 2 on every seed
+   (the fused path's ``dot_mixed`` and this path's SpMV epilogue sum
+   <r0,s> in different orders, so the two fused paths are each held to
+   spmd, not to each other); at 608x608x1536 in bf16 it
    runs 30 iterations with exactly 2 K6 and 1 each of K3 and K4 per
    iteration, timed against its own bytes model.
 
@@ -84,7 +92,16 @@ PAPER_MESH = (608, 608, 1536)
 JOULE_MESH = (608, 608, 608)  # configs/stencil_cs1.py joule_600: the batched path's mesh
 DEFAULT_MESH = (48, 48, 32)  # the CLI's default cell (phases 3, 6, 7)
 CHECK_SHAPES = [(256, 256, 256), DEFAULT_MESH, (37, 29, 17)]
+#: the overlap schedule's ring slabs (depth r, down to one plane thick), stencil only
+SLAB_SHAPES = {"star7": [(1, 29, 17), (37, 1, 17), (37, 29, 1)],
+               "box27": [(1, 29, 17), (37, 1, 17), (37, 29, 1)],
+               "star25": [(4, 29, 17)]}
 CHECK_BATCHES = (1, 3)
+FAMILY_MESH = (256, 256, 256)   # box27 and star25 timed here, off the measured paths
+#: the redesigned kernels' times before their redesign, as PERF.md's kernel table
+#: gives them in brackets (NVIDIA H100 80GB HBM3 at 700 W), printed beside the new ones
+EARLIER_MS = {"stencil_nd": 6.99, "stencil_nd_batched": 7.72, "dot_mixed": 1.98,
+              "dot_mixed_batched": 1.81}
 MAIN_ITERS = 30
 MAIN_NRHS = 4
 PHASE3_SEEDS = 5
@@ -299,45 +316,54 @@ def check_stencil7_dot(torch, vp, w, cfs, label) -> None:
            f"{label} vs K1 with f32 accumulation")
 
 
-def check_kernels(torch) -> None:
-    """Every kernel vs its plain version at CHECK_SHAPES."""
+def check_stencil(torch, gen, shape, dtype, sname, with_k6: bool) -> None:
+    """K1 and K1b (B = 1 and 3) for one spec, shape and dtype against the
+    plain version, every accumulation; K6 too where ``with_k6``."""
     from repro_torch.core import stencil
     from repro_torch.kernels.stencil_nd.kernel import stencil_nd
     from repro_torch.kernels.stencil_nd.ref import stencil_nd_padded_ref
 
     dev = torch.device("cuda")
+    spec = stencil.get_spec(sname)
+    rnd = lambda shp: torch.randn(shp, generator=gen, device=dev).to(dtype)
+    label = f"{'x'.join(map(str, shape))} {str(dtype).split('.')[-1]}"
+    accs = [torch.float32] if dtype == torch.float32 else [torch.bfloat16, torch.float32]
+    r = spec.radius
+    vp = rnd(tuple(s + 2 * r for s in shape))   # random halo: indexing is checked
+    cfs = [rnd(shape) * 0.2 for _ in spec.offsets]
+    for acc in accs:
+        got = stencil_nd(vp, cfs, spec.offsets, radius=r, accum_dtype=acc)
+        want = stencil_nd_padded_ref(vp, cfs, spec.offsets, radius=r, accum_dtype=acc)
+        vec_eq("stencil_nd", got, want, f"{sname} {label} accum {str(acc).split('.')[-1]}")
+    if with_k6:
+        check_stencil7_dot(torch, vp, rnd(shape), cfs, label)
+    for nb in CHECK_BATCHES:
+        vpb = rnd((nb,) + tuple(s + 2 * r for s in shape))
+        for acc in accs:
+            check_stencil_batched(torch, vpb, cfs, spec, acc,
+                                  f"{sname} {label} B={nb} accum {str(acc).split('.')[-1]}")
+
+
+def check_kernels(torch) -> None:
+    """Every kernel vs its plain version at CHECK_SHAPES, and the stencil at
+    the ring slabs of SLAB_SHAPES."""
+    dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    specs = {n: stencil.get_spec(n) for n in ("star7", "box27", "star25")}
     for shape in CHECK_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             rnd = lambda shp: torch.randn(shp, generator=gen, device=dev).to(dtype)
             label = f"{'x'.join(map(str, shape))} {str(dtype).split('.')[-1]}"
-            accs = [torch.float32] if dtype == torch.float32 else [torch.bfloat16, torch.float32]
-            for sname, spec in specs.items():
-                r = spec.radius
-                vp = rnd(tuple(s + 2 * r for s in shape))   # random halo: indexing is checked
-                cfs = [rnd(shape) * 0.2 for _ in spec.offsets]
-                for acc in accs:
-                    got = stencil_nd(vp, cfs, spec.offsets, radius=r, accum_dtype=acc)
-                    want = stencil_nd_padded_ref(vp, cfs, spec.offsets, radius=r,
-                                                 accum_dtype=acc)
-                    vec_eq("stencil_nd", got, want,
-                           f"{sname} {label} accum {str(acc).split('.')[-1]}")
-                if sname == "star7":
-                    check_stencil7_dot(torch, vp, rnd(shape), cfs, f"{label}")
-                for nb in CHECK_BATCHES:
-                    vpb = rnd((nb,) + tuple(s + 2 * r for s in shape))
-                    for acc in accs:
-                        check_stencil_batched(torch, vpb, cfs, spec, acc,
-                                              f"{sname} {label} B={nb} accum "
-                                              f"{str(acc).split('.')[-1]}")
-                    del vpb
-                del vp, cfs
+            for sname in ("star7", "box27", "star25"):
+                check_stencil(torch, gen, shape, dtype, sname, sname == "star7")
             check_fused_iter(torch, *scalars(torch), [rnd(math.prod(shape)) for _ in range(5)],
                              label)
             for nb in CHECK_BATCHES:
                 check_fused_iter_batched(torch, [rnd((nb, math.prod(shape))) for _ in range(5)],
                                          f"{label} B={nb}")
+    for sname, shapes in SLAB_SHAPES.items():
+        for shape in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                check_stencil(torch, gen, shape, dtype, sname, False)
     torch.cuda.synchronize()
 
 
@@ -379,6 +405,9 @@ def check_and_time_paper_mesh(torch) -> dict:
                                                   accum_dtype=dt)
     vec_eq("stencil_nd", stencil_kernel(), stencil_plain(), f"star7 {label} accum bfloat16")
     check_fused_iter(torch, a, o, b, v, label)
+    # a self-dot, as the solver's setup takes <b,b>: positive terms show summation drift
+    dot_close("dot_mixed", fk.dot_mixed(v[1], v[1]), fref.dot_mixed_ref(v[1], v[1]), v[1], v[1],
+              label + " self-dot")
     w = v[4].view(PAPER_MESH)
     check_stencil7_dot(torch, vp, w, cfs, label + " accum float32")
     torch.cuda.synchronize()
@@ -468,6 +497,36 @@ def check_and_time_batched(torch) -> dict:
         unbatched=each(lambda i: fk.dot_mixed(v[0][i], v[1][i])))
     del vp, cfs, v
     torch.cuda.empty_cache()
+    return out
+
+
+def time_family(torch) -> dict:
+    """K1 and K1b (4 RHS) for box27 and star25 at FAMILY_MESH in bf16 with
+    bf16 accumulation, off the measured paths, beside their bounds."""
+    from repro_torch.core import stencil
+    from repro_torch.kernels.stencil_nd.kernel import stencil_nd, stencil_nd_batched
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n = math.prod(FAMILY_MESH)
+    out = {}
+    for sname in ("box27", "star25"):
+        spec = stencil.get_spec(sname)
+        r = spec.radius
+        vp = torch.randn((MAIN_NRHS,) + tuple(s + 2 * r for s in FAMILY_MESH), generator=gen,
+                         device=dev).to(dt)
+        cfs = [(0.1 * torch.randn(FAMILY_MESH, generator=gen, device=dev)).to(dt)
+               for _ in spec.offsets]
+        kw = dict(radius=r, accum_dtype=dt)
+        k1 = dict(ms=cuda_ms(torch, lambda: stencil_nd(vp[0], cfs, spec.offsets, **kw)))
+        k1["bound_ms"], k1["bound_by"] = bound(nbytes(vp[0], *cfs) + 2 * n,
+                                               2 * spec.n_offsets * n)
+        k1b = dict(ms=cuda_ms(torch, lambda: stencil_nd_batched(vp, cfs, spec.offsets, **kw)))
+        k1b["bound_ms"], k1b["bound_by"] = bound(nbytes(vp, *cfs) + 2 * n * MAIN_NRHS,
+                                                 2 * spec.n_offsets * n * MAIN_NRHS)
+        out[sname] = {"stencil_nd": k1, f"stencil_nd_batched_x{MAIN_NRHS}": k1b}
+        del vp, cfs
+        torch.cuda.empty_cache()
     return out
 
 
@@ -625,8 +684,10 @@ def batched_semantics(torch, seed: int) -> dict:
     return out
 
 
-def ref_fused_default(torch, seed: int, fused_iterations: int) -> dict:
-    """solve_ref_fused at the default cell, f32, tol 1e-6."""
+def ref_fused_default(torch, seed: int, spmd_iterations: int, fused_iterations: int) -> dict:
+    """solve_ref_fused at the default cell, f32, tol 1e-6: it must converge,
+    within 2 iterations of the spmd solve (phase 3 holds the fused path to
+    the same bound); the gap to the fused path is recorded beside it."""
     from repro_torch.core import bicgstab, stencil
     from repro_torch.launch import solve
 
@@ -634,10 +695,10 @@ def ref_fused_default(torch, seed: int, fused_iterations: int) -> dict:
                                          device=torch.device("cuda"))
     res = bicgstab.solve_ref_fused(cf, b, tol=1e-6, maxiter=200)
     out = dict(seed=seed, iterations=int(res.iterations), converged=bool(res.converged),
-               fused_iterations=fused_iterations,
+               spmd_iterations=spmd_iterations, fused_iterations=fused_iterations,
                true_rel_residual=solve._true_rel_residual(cf, res.x, b))
     check(out["converged"] and out["true_rel_residual"] < 1e-5
-          and abs(out["iterations"] - fused_iterations) <= 2,
+          and abs(out["iterations"] - spmd_iterations) <= 2,
           f"seed {seed}: solve_ref_fused {out}")
     return out
 
@@ -772,10 +833,12 @@ def main(argv=None) -> int:
     check_kernels(torch)
     times = check_and_time_paper_mesh(torch)
     times["batched"] = check_and_time_batched(torch)
+    times["family_256"] = time_family(torch)
     sizes = ([math.prod(s) for s in CHECK_SHAPES] + [math.prod(PAPER_MESH)]
              + [math.prod(JOULE_MESH)])
     record["kernels_vs_plain"] = dict(
         shapes=[list(s) for s in CHECK_SHAPES] + [list(PAPER_MESH)],
+        slab_shapes={k: [list(s) for s in v] for k, v in SLAB_SHAPES.items()},
         batches=list(CHECK_BATCHES), batched_shape=[MAIN_NRHS, *JOULE_MESH],
         dot_tol_over_sum_abs={str(n): dot_tol(n) for n in sizes},
         max_abs_err=err, dot_err_over_sum_abs=dot_rel, min_plain_dot_over_tol=dot_signal)
@@ -785,6 +848,12 @@ def main(argv=None) -> int:
               bf16=times["bf16"], dot_mixed_f32=times["dot_mixed_f32"]))
     emit(dict(phase="kernel_times_batched", shape=[MAIN_NRHS, *JOULE_MESH], dtype="bfloat16",
               **times["batched"]))
+    emit(dict(phase="kernel_times_family", shape=list(FAMILY_MESH), dtype="bfloat16",
+              accum="bfloat16", **times["family_256"]))
+    flat = {**times["bf16"], **times["batched"]}
+    emit(dict(phase="redesigned", card=smi, kernels={
+        k: dict(ms=flat[k]["ms"], earlier_ms=v, bound_ms=flat[k]["bound_ms"],
+                library_ms=flat[k]["library_ms"]) for k, v in EARLIER_MS.items()}))
 
     # -- phase 3: convergence at the CLI's default problem, f32 ---------------
     # One seed's count moves by up to 2 with the dots' summation order alone
@@ -866,8 +935,12 @@ def main(argv=None) -> int:
     emit(dict(phase="batched_semantics", runs=record["batched_semantics"]))
 
     # -- phase 7: solve_ref_fused ------------------------------------------------
-    ref_default = [ref_fused_default(torch, r["seed"], r["fused_iterations"]) for r in runs]
-    emit(dict(phase="ref_fused_default", runs=ref_default))
+    ref_default = [ref_fused_default(torch, r["seed"], r["spmd_iterations"], r["fused_iterations"])
+                   for r in runs]
+    ref_gaps = sorted(abs(r["iterations"] - r["spmd_iterations"]) for r in ref_default)
+    emit(dict(phase="ref_fused_default", runs=ref_default, iteration_gaps=ref_gaps))
+    check(ref_gaps[len(ref_gaps) // 2] <= 1,
+          f"solve_ref_fused vs spmd iteration gaps {ref_gaps}: median must be <= 1, max <= 2")
     torch.cuda.empty_cache()
     res7, counts7 = ref_fused_paper_mesh(torch)
     emit(res7)

@@ -18,14 +18,17 @@
 // of the same pass instead of another sweep; a fixed grid walks the vectors
 // grid-stride, each thread sums in chunks, and the partial sums reduce
 // without atomics (common.cuh), so the same inputs give the same bits on
-// every run.  The scalars come in by device pointer to f32 tensors and are
-// rounded to storage here, so the solver loop never waits on the card to
-// read them.
+// every run.  dot_mixed, which only reads, has a grid and loads of its own
+// (below): with the update passes' grid (half the card's threads) and one
+// 2-byte load of each operand per step, it had about 4 B in flight per thread
+// and ran at a third of its byte bound.  The scalars come in by device
+// pointer to f32 tensors and are rounded to storage here, so the solver loop
+// never waits on the card to read them.
 //
 // Batch: the B right-hand sides lie back to back, n points each, and the grid
-// is (reduce_blocks(n), B) with blockIdx.y the RHS, which reads its own
-// scalars alpha[b] (omega[b], beta[b]).  Each RHS runs the very grid, chunks
-// and block tree of a lone vector, and sum_partials gives it one block of its
+// is (reduce_blocks(n), B), dot_mixed's (dot_blocks(n), B), with blockIdx.y
+// the RHS, which reads its own scalars alpha[b] (omega[b], beta[b]).  Each
+// RHS runs the very grid, chunks and block tree of a lone vector, and sum_partials gives it one block of its
 // own, so every RHS's outputs, dots included, equal the unbatched launch on
 // that slice bit for bit.  The unbatched launch is the batched one with B = 1.
 #include "common.cuh"
@@ -86,16 +89,93 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// dot_mixed: its own grid, filling the card (kDotBlocks blocks of kThreads,
+// 2048 threads on each of the 132 SMs), and 16-B loads.  Elements group by
+// index within the RHS into vectors of G = 16 B / itemsize (8 bf16, 4 f32);
+// each group's G rounded products sum in a fixed tree, a thread's group sums
+// in chunks of kChunk, and the blocks' partials in sum_partials.  A thread
+// takes two groups a step, so 64 B of a and b are in flight per thread.
+// Where n % G != 0 or an operand is not 16-B aligned the same groups load
+// element by element (the last one zero-padded), so the sums depend only on
+// n and the elements, never on the addresses: each RHS of a batch equals the
+// B = 1 launch on it bit for bit, also where RHS b > 0 starts off a 16-B
+// boundary (n odd).
+constexpr int kDotBlocks = 8 * 132;
+
+inline int dot_blocks(long long n) {
+  const long long b = (n + kThreads * 8 - 1) / (kThreads * 8);
+  return (int)(b < kDotBlocks ? b : kDotBlocks);
+}
+
+// group j (elements G j .. G j + G-1) of p: one 16-B load when wide
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint4 load_group(const T* p, uint32_t j, int64_t n, bool wide) {
+  constexpr int G = 16 / (int)sizeof(T);
+  if (wide) return __ldg(reinterpret_cast<const uint4*>(p) + j);
+  float v[G];
+#pragma unroll
+  for (int e = 0; e < G; ++e) {
+    const int64_t i = (int64_t)j * G + e;
+    v[e] = i < n ? to_f(p[i]) : 0.0f;
+  }
+  uint32_t w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if constexpr (G == 4) w[k] = __float_as_uint(v[k]);
+    else w[k] = (__float_as_uint(v[2 * k]) >> 16) | (__float_as_uint(v[2 * k + 1]) & 0xffff0000u);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// sum of the group's products rounded to T, in a fixed tree
+template <typename T>
+__device__ __forceinline__ float group_dot(const uint4& a, const uint4& b) {
+  const uint32_t wa[4] = {a.x, a.y, a.z, a.w}, wb[4] = {b.x, b.y, b.z, b.w};
+  float p[8];
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) p[k] = __fmul_rn(__uint_as_float(wa[k]), __uint_as_float(wb[k]));
+    return __fadd_rn(__fadd_rn(p[0], p[1]), __fadd_rn(p[2], p[3]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      p[2 * k] = mul<T>(__uint_as_float(wa[k] << 16), __uint_as_float(wb[k] << 16));
+      p[2 * k + 1] = mul<T>(__uint_as_float(wa[k] & 0xffff0000u),
+                            __uint_as_float(wb[k] & 0xffff0000u));
+    }
+    return __fadd_rn(__fadd_rn(__fadd_rn(p[0], p[1]), __fadd_rn(p[2], p[3])),
+                     __fadd_rn(__fadd_rn(p[4], p[5]), __fadd_rn(p[6], p[7])));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 8)
     dot_mixed_kernel(const T* __restrict__ a, const T* __restrict__ b, float* __restrict__ part,
-                     int64_t n) {
+                     int64_t n, int wide) {
+  constexpr int G = 16 / (int)sizeof(T);
   const int64_t off = (int64_t)blockIdx.y * n;
   a += off, b += off;
   part += (int64_t)blockIdx.y * gridDim.x;
-  ChunkedSum<1> acc;
-  REPRO_GRID_STRIDE(i, n) { acc.add({mul<T>(to_f(a[i]), to_f(b[i]))}); }
-  store_partials<1>(acc, part);
+  const uint32_t ng = (uint32_t)((n + G - 1) / G), stride = gridDim.x * kThreads;
+  uint32_t j = blockIdx.x * kThreads + threadIdx.x;
+  float inner = 0.0f, outer = 0.0f;
+  int k = 0;
+  for (; j + stride < ng; j += 2 * stride) {
+    const uint4 a0 = load_group(a, j, n, wide), b0 = load_group(b, j, n, wide);
+    const uint4 a1 = load_group(a, j + stride, n, wide), b1 = load_group(b, j + stride, n, wide);
+    inner = __fadd_rn(inner, group_dot<T>(a0, b0));
+    inner = __fadd_rn(inner, group_dot<T>(a1, b1));
+    if (++k == kChunk / 2) {
+      outer = __fadd_rn(outer, inner);
+      inner = 0.0f;
+      k = 0;
+    }
+  }
+  if (j < ng) inner = __fadd_rn(inner, group_dot<T>(load_group(a, j, n, wide),
+                                                    load_group(b, j, n, wide)));
+  float v[1] = {__fadd_rn(outer, inner)};
+  block_sum<1>(v);
+  if (threadIdx.x == 0) part[blockIdx.x] = v[0];
 }
 
 }  // namespace repro
@@ -103,13 +183,17 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" {
 
 // Blocks of the partial-sum pass over n points: the scratch buffer of a
-// dot-producing launch holds B * repro_reduce_blocks(n) * n_dots floats.
+// dot-producing launch holds B * repro_reduce_blocks(n) * n_dots floats ...
 int repro_reduce_blocks(long long n) { return repro::reduce_blocks(n); }
+
+// ... except dot_mixed's, which holds B * repro_dot_mixed_blocks(n) floats.
+int repro_dot_mixed_blocks(long long n) { return repro::dot_blocks(n); }
 
 // Every entry point runs one pass over B right-hand sides of n points each,
 // back to back, with B scalars of each kind (a 0-d scalar is B = 1), and
 // returns a cudaError_t code (0 on success).  `partials` is f32 scratch of
-// B * repro_reduce_blocks(n) * n_dots floats; `out` receives the n_dots x B
+// B * repro_reduce_blocks(n) * n_dots floats (B * repro_dot_mixed_blocks(n)
+// for dot_mixed); `out` receives the n_dots x B
 // f32 sums, dot-major.
 
 #define REPRO_CHECK_SIZE(n, nb) \
@@ -186,14 +270,17 @@ int repro_dot_mixed(int dtype, const void* a, const void* b, void* partials, voi
                     long long n, long long nb, void* stream) {
   using namespace repro;
   REPRO_CHECK_SIZE(n, nb);
-  const dim3 grid(reduce_blocks(n), (unsigned)nb);
+  const long long G = dtype == kF32 ? 4 : 8;
+  if ((n + G - 1) / G > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid(dot_blocks(n), (unsigned)nb);
+  const int wide = n % G == 0 && ((uintptr_t)a & 15) == 0 && ((uintptr_t)b & 15) == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) {
     dot_mixed_kernel<float><<<grid, kThreads, 0, st>>>((const float*)a, (const float*)b,
-                                                       (float*)partials, n);
+                                                       (float*)partials, n, wide);
   } else if (dtype == kBF16) {
     dot_mixed_kernel<bf16><<<grid, kThreads, 0, st>>>((const bf16*)a, (const bf16*)b,
-                                                      (float*)partials, n);
+                                                      (float*)partials, n, wide);
   } else {
     return (int)cudaErrorInvalidValue;
   }

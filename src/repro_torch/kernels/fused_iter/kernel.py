@@ -60,8 +60,9 @@ def _launch(what: str, batched: bool, scalars, vectors, n_out: int, n_dots: int)
     outs = [torch.empty_like(first) for _ in range(n_out)]
     bufs = []
     if n_dots:
-        bufs = [torch.empty(nb * lib.repro_reduce_blocks(n) * n_dots, dtype=torch.float32,
-                            device=first.device),
+        blocks = (lib.repro_dot_mixed_blocks if what == "dot_mixed"
+                  else lib.repro_reduce_blocks)(n)
+        bufs = [torch.empty(nb * blocks * n_dots, dtype=torch.float32, device=first.device),
                 torch.empty((n_dots, nb) if batched else (n_dots,), dtype=torch.float32,
                             device=first.device)]
     code = getattr(lib, "repro_" + what)(

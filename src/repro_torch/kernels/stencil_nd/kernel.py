@@ -5,24 +5,84 @@ Counterpart of ``repro/kernels/stencil_nd/kernel.py:stencil_nd_pallas``:
 :func:`stencil_nd_batched` its batched form (body ``_kernel_batched``).  The
 tensor's device picks the path: a CPU tensor takes the plain version
 (:func:`~repro_torch.kernels.stencil_nd.ref.stencil_nd_padded_ref`), a CUDA
-tensor launches the kernel or raises.  ``launches`` counts kernel launches
-only, one counter per form.
+tensor launches the kernel or raises.  Both forms launch one CUDA kernel
+(the unbatched one with B = 1), cut into tiles, x segments and RHS chunks by
+:func:`launch_plan`.  ``launches`` counts kernel launches only, one counter
+per form.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
+from repro_torch.core.stencil import StencilSpec
 from repro_torch.kernels import _build
 from repro_torch.kernels.stencil_nd.ref import stencil_nd_padded_ref
 
 #: kernel launches in this process (CUDA tensors only)
 launches = {"stencil_nd": 0, "stencil_nd_batched": 0}
 
-_MAX_OFFSETS = 32      # kMaxOffsets of stencil_nd.cu
-_BATCHED_OFFSETS = (6, 12, 24, 26)   # the batched kernel's instantiations
+#: the family specs the kernel is compiled for: (offset count, radius) ->
+#: (kind, the most right-hand sides one block carries; max_chunk of stencil_nd.cu)
+FAMILY = {(6, 1): ("star", 4), (12, 2): ("star", 2), (24, 4): ("star", 1), (26, 1): ("box", 4)}
+TILE_Y = 16                  # kTY of stencil_nd.cu
+THREADS_Z = 16               # kTZT: threads along z, each on one 16-B vector
+TARGET_BLOCKS = 132 * 16     # blocks to aim for: 16 per SM of an H100
+MIN_SEGMENT = 8              # fewest x planes a segment marches (each re-reads 2r)
+SMEM_BYTES = 232448          # shared memory one block may use (227 KB)
+MAX_GRID_X, MAX_GRID_YZ = 2 ** 31 - 1, 65535
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How the stencil kernel cuts a ``(B, bx, by, Z)`` launch: (y, z) tiles
+    of ``ty x tz`` points, x segments of ``seg_len`` planes, and chunks of
+    ``chunk`` right-hand sides; each block takes one tile, one segment and one
+    chunk.  Every plan gives the same bits (each output is a canonical-order
+    sum over the offsets)."""
+    ty: int
+    tz: int
+    seg_len: int
+    chunk: int
+    tiles_y: int
+    tiles_z: int
+    segments: int
+    chunks: int
+    smem_bytes: int
+
+    @property
+    def grid(self) -> tuple[int, int, int]:
+        return (self.tiles_y * self.tiles_z, self.segments, self.chunks)
+
+
+def launch_plan(shape: tuple[int, int, int], nb: int, n_off: int, radius: int,
+                itemsize: int) -> LaunchPlan:
+    """The stencil kernel's launch plan for a ``shape`` block, ``nb`` RHS, a
+    family spec of ``n_off`` offsets and ``radius``, and ``itemsize``-byte
+    storage (counterpart of ``repro``'s ``_valid_tile``).  The tile is the
+    compiled one: 16 rows by 16 threads of one 16-B vector each along z."""
+    if (n_off, radius) not in FAMILY:
+        raise ValueError(f"the stencil kernel is built for the family specs {sorted(FAMILY)} "
+                         f"(offsets, radius); got ({n_off}, {radius})")
+    if itemsize not in (2, 4):
+        raise ValueError(f"the stencil kernel stores bf16 or f32, got itemsize {itemsize}")
+    bx, by, z = shape
+    r = radius
+    vz = 16 // itemsize
+    ty, tz = TILE_Y, THREADS_Z * vz
+    chunk = 1 if nb == 1 else FAMILY[(n_off, r)][1]
+    tiles_y, tiles_z = -(-by // ty), -(-z // tz)
+    chunks = -(-nb // chunk)
+    # shared memory: a ring of 2r+2 planes of (ty+2r) rows, pitch tz + 2 vz, per RHS
+    smem = min(chunk, nb) * (2 * r + 2) * (ty + 2 * r) * (tz + 2 * vz) * itemsize
+    want = -(-TARGET_BLOCKS // (tiles_y * tiles_z * chunks))
+    seg_len = min(bx, max(MIN_SEGMENT, -(-bx // want)))
+    return LaunchPlan(ty=ty, tz=tz, seg_len=seg_len, chunk=chunk, tiles_y=tiles_y,
+                      tiles_z=tiles_z, segments=-(-bx // seg_len), chunks=chunks,
+                      smem_bytes=smem)
 
 
 def _check(what: str, vp: torch.Tensor, coeffs: list[torch.Tensor], offsets, r: int,
@@ -36,11 +96,14 @@ def _check(what: str, vp: torch.Tensor, coeffs: list[torch.Tensor], offsets, r: 
     shape = tuple(s - 2 * r for s in vp.shape[nb:])
     if min(shape) < 1:
         raise ValueError(f"padded block {tuple(vp.shape)} is empty at radius {r}")
-    if len(coeffs) != len(offsets) or not 1 <= len(coeffs) <= _MAX_OFFSETS:
-        raise ValueError(f"need 1..{_MAX_OFFSETS} coefficient fields, one per offset; "
-                         f"got {len(coeffs)} fields and {len(offsets)} offsets")
-    if any(max(abs(o) for o in off) > r for off in offsets):
-        raise ValueError(f"an offset exceeds the halo radius {r}: {offsets}")
+    if len(coeffs) != len(offsets):
+        raise ValueError(f"need one coefficient field per offset; got {len(coeffs)} fields "
+                         f"and {len(offsets)} offsets")
+    kind = FAMILY.get((len(offsets), r), ("", 0))[0]
+    if not kind or tuple(map(tuple, offsets)) != StencilSpec(kind, r, 3).offsets:
+        raise ValueError(f"{what} is built for the family specs (star7, star13, star25, "
+                         f"box27) in canonical offset order; got {len(offsets)} offsets at "
+                         f"radius {r}: {offsets}")
     for t in (vp, *coeffs):
         if t.device != vp.device or t.dtype != vp.dtype or not t.is_contiguous():
             raise ValueError(f"{what} takes contiguous tensors of one dtype on one "
@@ -52,10 +115,26 @@ def _check(what: str, vp: torch.Tensor, coeffs: list[torch.Tensor], offsets, r: 
     return shape
 
 
-def _pointers(coeffs, offsets):
+def _launch(what: str, vp: torch.Tensor, coeffs: list[torch.Tensor], offsets, r: int,
+            accum_dtype: torch.dtype, batched: bool) -> torch.Tensor:
+    """Check, plan, allocate ``u`` and launch; B = 1 for the unbatched form."""
+    shape = _check(what, vp, coeffs, offsets, r, int(batched))
+    nb = vp.shape[0] if batched else 1
+    if not 1 <= nb <= _build.MAX_BATCH:
+        raise ValueError(f"{what} takes 1..{_build.MAX_BATCH} right-hand sides, got {nb}")
+    plan = launch_plan(shape, nb, len(offsets), r, vp.element_size())
+    lib = _build.load_library()
+    u = torch.empty(vp.shape[:int(batched)] + shape, dtype=vp.dtype, device=vp.device)
     ptrs = (ctypes.c_uint64 * len(coeffs))(*(c.data_ptr() for c in coeffs))
     offs = (ctypes.c_int * (3 * len(offsets)))(*(o for off in offsets for o in off))
-    return ptrs, offs
+    code = lib.repro_stencil_nd(
+        _build.dtype_code(vp.dtype), _build.dtype_code(accum_dtype), vp.data_ptr(),
+        ctypes.addressof(ptrs), ctypes.addressof(offs), len(coeffs), r, nb, *shape,
+        u.data_ptr(), plan.ty, plan.tz, plan.seg_len, plan.chunk,
+        _build.stream_handle(vp.device))
+    _build.check_launch(lib, code, what)
+    launches[what] += 1
+    return u
 
 
 def stencil_nd(vp: torch.Tensor, coeffs: list[torch.Tensor],
@@ -65,24 +144,15 @@ def stencil_nd(vp: torch.Tensor, coeffs: list[torch.Tensor],
 
     ``vp``: the ``(bx+2r, by+2r, Z+2r)`` iterate with its halo; ``coeffs[i]``
     the ``(bx, by, Z)`` diagonal that multiplies the ``offsets[i]``-shifted
-    window.  The unit main diagonal is implicit; products and sums run in
-    ``accum_dtype`` and the result has ``vp``'s dtype.
+    window, ``offsets`` a family spec's (star7, star13, star25, box27) in
+    canonical order.  The unit main diagonal is implicit; products and sums
+    run in ``accum_dtype`` and the result has ``vp``'s dtype.  The kernel is
+    the batched one with B = 1, cut by :func:`launch_plan`.
     """
     if vp.device.type == "cpu":
         return stencil_nd_padded_ref(vp, coeffs, offsets, radius=radius,
                                      accum_dtype=accum_dtype)
-    r = radius
-    shape = _check("stencil_nd", vp, coeffs, offsets, r, 0)
-    lib = _build.load_library()
-    u = torch.empty(shape, dtype=vp.dtype, device=vp.device)
-    ptrs, offs = _pointers(coeffs, offsets)
-    code = lib.repro_stencil_nd(
-        _build.dtype_code(vp.dtype), _build.dtype_code(accum_dtype), vp.data_ptr(),
-        ctypes.addressof(ptrs), ctypes.addressof(offs), len(coeffs), r,
-        shape[0], shape[1], shape[2], u.data_ptr(), _build.stream_handle(vp.device))
-    _build.check_launch(lib, code, "stencil_nd")
-    launches["stencil_nd"] += 1
-    return u
+    return _launch("stencil_nd", vp, coeffs, offsets, radius, accum_dtype, False)
 
 
 def stencil_nd_batched(vp: torch.Tensor, coeffs: list[torch.Tensor],
@@ -93,28 +163,9 @@ def stencil_nd_batched(vp: torch.Tensor, coeffs: list[torch.Tensor],
     ``vp``: ``(B, bx+2r, by+2r, Z+2r)``; ``coeffs`` as for :func:`stencil_nd`,
     shared by every RHS; returns ``(B, bx, by, Z)``.  Each slice equals
     :func:`stencil_nd` on that slice bit for bit.  B runs from 1 to
-    ``_build.MAX_BATCH`` (65535); the offsets are those of a family spec
-    (6, 12, 24 or 26 of them).
+    ``_build.MAX_BATCH`` (65535); the offsets as for :func:`stencil_nd`.
     """
     if vp.device.type == "cpu":
         return stencil_nd_padded_ref(vp, coeffs, offsets, radius=radius,
                                      accum_dtype=accum_dtype)
-    r = radius
-    shape = _check("stencil_nd_batched", vp, coeffs, offsets, r, 1)
-    if len(offsets) not in _BATCHED_OFFSETS:
-        raise ValueError(f"stencil_nd_batched is built for {_BATCHED_OFFSETS} offsets "
-                         f"(star7, star13, star25, box27), got {len(offsets)}")
-    nb = vp.shape[0]
-    if not 1 <= nb <= _build.MAX_BATCH:
-        raise ValueError(f"stencil_nd_batched takes 1..{_build.MAX_BATCH} right-hand sides, "
-                         f"got {nb}")
-    lib = _build.load_library()
-    u = torch.empty((nb,) + shape, dtype=vp.dtype, device=vp.device)
-    ptrs, offs = _pointers(coeffs, offsets)
-    code = lib.repro_stencil_nd_batched(
-        _build.dtype_code(vp.dtype), _build.dtype_code(accum_dtype), vp.data_ptr(),
-        ctypes.addressof(ptrs), ctypes.addressof(offs), len(coeffs), r, nb,
-        shape[0], shape[1], shape[2], u.data_ptr(), _build.stream_handle(vp.device))
-    _build.check_launch(lib, code, "stencil_nd_batched")
-    launches["stencil_nd_batched"] += 1
-    return u
+    return _launch("stencil_nd_batched", vp, coeffs, offsets, radius, accum_dtype, True)
