@@ -7,14 +7,19 @@ holds each against its plain PyTorch version, and drives the main path.
 Phases (one line of output each, JSON where it carries numbers):
 
 1. the card's name and power limit (``nvidia-smi``), then the kernel build
-   (``nvcc`` per source, into ``build/repro_torch_kernels/``) and its seconds;
+   (``nvcc`` per source, into ``build/repro_torch_kernels/``) and its seconds,
+   and each kernel's registers and spills from ``ptxas``: the group passes
+   (K2/K2b, K4/K4b) must not spill;
 2. every kernel against its plain version on the card, at 256x256x256,
    at the default cell's 48x48x32 and at the ragged 37x29x17, in f32 and
    bf16: the stencil (K1) for star7, box27 and star25; the batched stencil
    (K1b) at B = 1 and 3 for the same specs, each slice also against K1; the
    fused passes (K2-K5) and their batched forms (K2b-K5b) at B = 1 and 3
    with distinct per-RHS scalars, each RHS's vectors and dots also against
-   the unbatched kernel on its slice, bit for bit; and the star7 SpMV with
+   the unbatched kernel on its slice, bit for bit; the same passes on
+   operands that start off a 16-B boundary with n a whole number of 16-B
+   groups (their element-wise form), also bit for bit against the same data
+   on 16-B boundaries; and the star7 SpMV with
    its dot epilogue (K6), whose vector must also equal K1's with f32
    accumulation; then K1 and K1b (B = 1 and 3) at the overlap schedule's
    ring slabs, 1x29x17, 37x1x17 and 37x29x1 for star7 and box27 and 4x29x17
@@ -29,7 +34,8 @@ Phases (one line of output each, JSON where it carries numbers):
    ``torch.linalg.vecdot``), the batched kernels beside 4 unbatched launches
    on the same slices, and K6 beside K1 + K5 on the same inputs; K1 and K1b
    (4 RHS) for box27 and star25 at 256^3 beside their bounds; and the
-   redesigned kernels (K1, K1b, K5, K5b) beside their earlier times;
+   redesigned kernels (K1, K1b, K5, K5b, K2, K2b, K4, K4b) beside their
+   times before the redesign;
 3. the CLI's default problem (48x48x32 convdiff star7, f32, tol 1e-6)
    through ``--backend fused`` for seeds 0-4: each must converge to a true
    relative residual below 1e-5, with the kernels' launch counts, and its
@@ -101,7 +107,11 @@ FAMILY_MESH = (256, 256, 256)   # box27 and star25 timed here, off the measured 
 #: the redesigned kernels' times before their redesign, as PERF.md's kernel table
 #: gives them in brackets (NVIDIA H100 80GB HBM3 at 700 W), printed beside the new ones
 EARLIER_MS = {"stencil_nd": 6.99, "stencil_nd_batched": 7.72, "dot_mixed": 1.98,
-              "dot_mixed_batched": 1.81}
+              "dot_mixed_batched": 1.81, "update_q_dots": 2.81, "update_q_dots_batched": 3.15,
+              "update_p": 2.87, "update_p_batched": 3.16}
+#: the group passes redesigned last, each in f32 and bf16, wide and element-wise:
+#: ptxas must report no spill for any of the four instances of each
+GROUP_KERNELS = ("update_q_dots_kernel", "update_p_kernel")
 MAIN_ITERS = 30
 MAIN_NRHS = 4
 PHASE3_SEEDS = 5
@@ -200,10 +210,10 @@ def dot_close(name, got, want, a, b, label) -> None:
                        f"(|diff| {diff:.3e} > {tol:.3e})")
 
 
-def same_bits(name, got, want, label) -> None:
+def same_bits(name, got, want, label, against="the unbatched kernel on its slice") -> None:
     """Outputs (vectors and 0-d dots alike) equal bit for bit."""
     check(all(g.equal(w) for g, w in zip(got, want)),
-          f"{name} {label}: not bitwise equal to the unbatched kernel on its slice")
+          f"{name} {label}: not bitwise equal to {against}")
 
 
 def check_fused_iter(torch, a, o, b, v, label) -> None:
@@ -283,6 +293,39 @@ def check_fused_iter_batched(torch, v, label) -> None:
         same_bits(name, [got[i]], [fk.dot_mixed(v[0][i], v[1][i])], f"{label} rhs {i}")
 
 
+def check_off_boundary(torch, v, label) -> None:
+    """K2-K5 and K2b-K5b on operands that start off a 16-B boundary while n
+    is a whole number of 16-B groups (views ``buf[1:]`` of one-longer
+    buffers), which alone sends the group passes to their element-wise form:
+    against their plain versions, each RHS against the B = 1 launch, and
+    against the same data on 16-B boundaries (the wide form) bit for bit,
+    dots included.  ``v`` holds five ``(B, n)`` operands."""
+    from repro_torch.kernels.fused_iter import kernel as fk
+
+    def off(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        buf[1:].copy_(t.reshape(-1))
+        return buf[1:].view(t.shape)
+
+    w = [off(t) for t in v]
+    check(all(t.data_ptr() % 16 for t in w), f"{label}: the views start on a 16-B boundary")
+    a, o, b = scalars(torch)
+    ab, ob, bb = batch_scalars(torch, v[0].shape[0])
+    one = lambda x: [t[0] for t in x]   # RHS 0 as a flat vector, off the boundary too
+    check_fused_iter(torch, a, o, b, one(w), label + " B=1")
+    check_fused_iter_batched(torch, w, f"{label} B={v[0].shape[0]}")
+    passes = {
+        "update_q_dots": lambda x: fk.update_q_dots(a, *one(x)[:3]),
+        "update_p": lambda x: [fk.update_p(b, o, *one(x)[:3])],
+        "dot_mixed": lambda x: [fk.dot_mixed(*one(x)[:2])],
+        "update_q_dots_batched": lambda x: fk.update_q_dots_batched(ab, *x[:3]),
+        "update_p_batched": lambda x: [fk.update_p_batched(bb, ob, *x[:3])],
+        "dot_mixed_batched": lambda x: [fk.dot_mixed_batched(*x[:2])],
+    }
+    for name, fn in passes.items():
+        same_bits(name, fn(w), fn(v), label, against="the same data on 16-B boundaries")
+
+
 def check_stencil_batched(torch, vp, cfs, spec, acc, label) -> None:
     """K1b against its plain version, and each slice against K1."""
     from repro_torch.kernels.stencil_nd.kernel import stencil_nd, stencil_nd_batched
@@ -360,6 +403,9 @@ def check_kernels(torch) -> None:
             for nb in CHECK_BATCHES:
                 check_fused_iter_batched(torch, [rnd((nb, math.prod(shape))) for _ in range(5)],
                                          f"{label} B={nb}")
+            if math.prod(shape) % 8 == 0:   # whole 16-B groups in both dtypes
+                check_off_boundary(torch, [rnd((CHECK_BATCHES[-1], math.prod(shape)))
+                                           for _ in range(5)], label + " off 16-B")
     for sname, shapes in SLAB_SHAPES.items():
         for shape in shapes:
             for dtype in (torch.float32, torch.bfloat16):
@@ -563,9 +609,9 @@ def ptxas_summary(log: str) -> dict:
         if m:
             name = m.group(1)
             out[name] = {}
-        m = re.search(r"(\d+) bytes spill stores", line)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
-            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_stores"], out[name]["spill_loads"] = map(int, m.groups())
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             out[name]["registers"] = int(m.group(1))
@@ -827,7 +873,12 @@ def main(argv=None) -> int:
     record["build"] = dict(phase="build", seconds=time.perf_counter() - t0,
                            library=str(lib_path.relative_to(ROOT)))
     emit(record["build"])
-    emit(dict(phase="ptxas", kernels=ptxas_summary(lib_path.with_suffix(".log").read_text())))
+    ptxas = ptxas_summary(lib_path.with_suffix(".log").read_text())
+    emit(dict(phase="ptxas", kernels=ptxas))
+    grouped = {k: v for k, v in ptxas.items() if any(g in k for g in GROUP_KERNELS)}
+    check(len(grouped) == 4 * len(GROUP_KERNELS) and all(
+        v.get("spill_stores") == 0 and v.get("spill_loads") == 0 for v in grouped.values()),
+          f"group kernels spill or are missing from the ptxas log: {grouped}")
 
     # -- phase 2: kernels vs plain versions, then times at the paths' shapes ---
     check_kernels(torch)

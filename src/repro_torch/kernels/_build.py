@@ -41,6 +41,8 @@ SIGNATURES = {
     "repro_update_p": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _P],
     "repro_dot_mixed": [_I, _P, _P, _P, _P, _L, _L, _P],
     "repro_reduce_blocks": [_L],
+    "repro_update_q_dots_blocks": [_L],
+    "repro_update_xr_dots_blocks": [_L],
     "repro_dot_mixed_blocks": [_L],
 }
 

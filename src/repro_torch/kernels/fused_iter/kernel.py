@@ -60,8 +60,7 @@ def _launch(what: str, batched: bool, scalars, vectors, n_out: int, n_dots: int)
     outs = [torch.empty_like(first) for _ in range(n_out)]
     bufs = []
     if n_dots:
-        blocks = (lib.repro_dot_mixed_blocks if what == "dot_mixed"
-                  else lib.repro_reduce_blocks)(n)
+        blocks = getattr(lib, f"repro_{what}_blocks")(n)   # each pass sizes its own grid
         bufs = [torch.empty(nb * blocks * n_dots, dtype=torch.float32, device=first.device),
                 torch.empty((n_dots, nb) if batched else (n_dots,), dtype=torch.float32,
                             device=first.device)]
