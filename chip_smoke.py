@@ -9,7 +9,7 @@ Phases (one line of output each, JSON where it carries numbers):
 1. the card's name and power limit (``nvidia-smi``), then the kernel build
    (``nvcc`` per source, into ``build/repro_torch_kernels/``) and its seconds,
    and each kernel's registers and spills from ``ptxas``: the group passes
-   (K2/K2b, K4/K4b) must not spill;
+   (K2/K2b, K4/K4b) and every instance of K6 must not spill;
 2. every kernel against its plain version on the card, at 256x256x256,
    at the default cell's 48x48x32 and at the ragged 37x29x17, in f32 and
    bf16: the stencil (K1) for star7, box27 and star25; the batched stencil
@@ -19,11 +19,13 @@ Phases (one line of output each, JSON where it carries numbers):
    the unbatched kernel on its slice, bit for bit; the same passes on
    operands that start off a 16-B boundary with n a whole number of 16-B
    groups (their element-wise form), also bit for bit against the same data
-   on 16-B boundaries; and the star7 SpMV with
-   its dot epilogue (K6), whose vector must also equal K1's with f32
-   accumulation; then K1 and K1b (B = 1 and 3) at the overlap schedule's
-   ring slabs, 1x29x17, 37x1x17 and 37x29x1 for star7 and box27 and 4x29x17
-   for star25.  Then at each path's own shapes: K1-K5 and K6 at
+   on 16-B boundaries; and the star7 SpMV with its dot epilogue (K6) at
+   every storage and accumulation dtype, its one-dot variant with w read
+   from memory and its two-dot variant with w the iterate itself, taken from
+   the kernel's ring, each launched twice (the same bits), its vector also
+   equal to K1's at the same accumulation; then K1 and K1b (B = 1 and 3), and K6, at the overlap
+   schedule's ring slabs, 1x29x17, 37x1x17 and 37x29x1 for star7 (K6 too)
+   and box27 and 4x29x17 for star25.  Then at each path's own shapes: K1-K5 and K6 at
    608x608x1536 in bf16 (K1 with bf16 accumulation, K6 with f32, K5 also on
    a self-dot), K1b-K5b at 608^3 x 4 in bf16.  Vector outputs must be
    bitwise equal, dot partials within log2(n) x eps_f32 x sum|a_i b_i| (both
@@ -32,9 +34,10 @@ Phases (one line of output each, JSON where it carries numbers):
    version's time, its bound at 3.35 TB/s, a library call's time where one
    PyTorch call computes the same function (K5: ``torch.dot``, K5b:
    ``torch.linalg.vecdot``), the batched kernels beside 4 unbatched launches
-   on the same slices, and K6 beside K1 + K5 on the same inputs; K1 and K1b
+   on the same slices, K6's one-dot variant beside K1 with f32 accumulation
+   and K1 + K5 on the same inputs, and its two-dot variant; K1 and K1b
    (4 RHS) for box27 and star25 at 256^3 beside their bounds; and the
-   redesigned kernels (K1, K1b, K5, K5b, K2, K2b, K4, K4b) beside their
+   redesigned kernels (K1, K1b, K5, K5b, K2, K2b, K4, K4b, K6) beside their
    times before the redesign;
 3. the CLI's default problem (48x48x32 convdiff star7, f32, tol 1e-6)
    through ``--backend fused`` for seeds 0-4: each must converge to a true
@@ -108,10 +111,14 @@ FAMILY_MESH = (256, 256, 256)   # box27 and star25 timed here, off the measured 
 #: gives them in brackets (NVIDIA H100 80GB HBM3 at 700 W), printed beside the new ones
 EARLIER_MS = {"stencil_nd": 6.99, "stencil_nd_batched": 7.72, "dot_mixed": 1.98,
               "dot_mixed_batched": 1.81, "update_q_dots": 2.81, "update_q_dots_batched": 3.15,
-              "update_p": 2.87, "update_p_batched": 3.16}
-#: the group passes redesigned last, each in f32 and bf16, wide and element-wise:
+              "update_p": 2.87, "update_p_batched": 3.16, "stencil7_dot": 6.62}
+#: the group passes (K2, K4), each in f32 and bf16, wide and element-wise:
 #: ptxas must report no spill for any of the four instances of each
 GROUP_KERNELS = ("update_q_dots_kernel", "update_p_kernel")
+#: K6 on the x-march: 2 accumulations x (1 f32 + 2 bf16 stagings) x (one dot with
+#: w from memory, two dots with w from the ring); ptxas must report no spill for
+#: any of them
+DOT_KERNEL, DOT_INSTANCES = "stencil7_dot_kernel", 12
 MAIN_ITERS = 30
 MAIN_NRHS = 4
 PHASE3_SEEDS = 5
@@ -339,29 +346,39 @@ def check_stencil_batched(torch, vp, cfs, spec, acc, label) -> None:
                   f"{label} slice {i}")
 
 
-def check_stencil7_dot(torch, vp, w, cfs, label) -> None:
-    """K6 (f32 accumulation) against its plain version, both variants; its
-    vector also against K1 with f32 accumulation."""
+def check_stencil7_dot(torch, vp, w, cfs, acc, label) -> None:
+    """K6 at accumulation ``acc`` against its plain version: the one-dot
+    variant with ``w`` read from memory and the two-dot variant with w the
+    iterate itself, taken from the kernel's ring; vectors bitwise, dots
+    within dot_tol.  A second launch gives the same bits, and the vector is
+    K1's at the same accumulation bit for bit."""
     from repro_torch.core.stencil import STAR7
     from repro_torch.kernels.stencil_nd.fused import stencil7_dots_padded
     from repro_torch.kernels.stencil_nd.kernel import stencil_nd
     from repro_torch.kernels.stencil_nd.ref import stencil7_dots_padded_ref
 
     name = "stencil7_dot"
-    for two in (False, True):
-        got = stencil7_dots_padded(vp, w, cfs, two_dots=two)
-        want = stencil7_dots_padded_ref(vp, w, cfs, STAR7.offsets, two_dots=two)
-        vec_eq(name, got[0], want[0], f"{label} two_dots={two}")
-        dot_close(name, got[1], want[1], w, got[0], f"{label} two_dots={two} <w,u>")
+    label = f"{label} accum {str(acc).split('.')[-1]}"
+    inner = vp[1:-1, 1:-1, 1:-1].contiguous()
+    run = lambda ww, two: [t for t in stencil7_dots_padded(vp, ww, cfs, two_dots=two,
+                                                           accum_dtype=acc) if t is not None]
+    for two, ww in ((False, w), (True, None)):
+        form = f"{label} two_dots={two}" + (" w from the ring" if ww is None else "")
+        got = run(ww, two)
+        want = stencil7_dots_padded_ref(vp, ww, cfs, STAR7.offsets, two_dots=two, accum_dtype=acc)
+        vec_eq(name, got[0], want[0], form)
+        dot_close(name, got[1], want[1], inner if ww is None else ww, got[0], form + " <w,u>")
         if two:
-            dot_close(name, got[2], want[2], got[0], got[0], f"{label} <u,u>")
-    vec_eq(name, got[0], stencil_nd(vp, cfs, STAR7.offsets, radius=1, accum_dtype=torch.float32),
-           f"{label} vs K1 with f32 accumulation")
+            dot_close(name, got[2], want[2], got[0], got[0], form + " <u,u>")
+        same_bits(name, got, run(ww, two), form, against="a second launch")
+    vec_eq(name, got[0], stencil_nd(vp, cfs, STAR7.offsets, radius=1, accum_dtype=acc),
+           f"{label} vs K1 at the same accumulation")
 
 
-def check_stencil(torch, gen, shape, dtype, sname, with_k6: bool) -> None:
+def check_stencil(torch, gen, shape, dtype, sname) -> None:
     """K1 and K1b (B = 1 and 3) for one spec, shape and dtype against the
-    plain version, every accumulation; K6 too where ``with_k6``."""
+    plain version, every accumulation; K6 too for star7, at both
+    accumulations."""
     from repro_torch.core import stencil
     from repro_torch.kernels.stencil_nd.kernel import stencil_nd
     from repro_torch.kernels.stencil_nd.ref import stencil_nd_padded_ref
@@ -378,8 +395,10 @@ def check_stencil(torch, gen, shape, dtype, sname, with_k6: bool) -> None:
         got = stencil_nd(vp, cfs, spec.offsets, radius=r, accum_dtype=acc)
         want = stencil_nd_padded_ref(vp, cfs, spec.offsets, radius=r, accum_dtype=acc)
         vec_eq("stencil_nd", got, want, f"{sname} {label} accum {str(acc).split('.')[-1]}")
-    if with_k6:
-        check_stencil7_dot(torch, vp, rnd(shape), cfs, label)
+    if sname == "star7":
+        w = rnd(shape)
+        for acc in (torch.float32, torch.bfloat16):
+            check_stencil7_dot(torch, vp, w, cfs, acc, label)
     for nb in CHECK_BATCHES:
         vpb = rnd((nb,) + tuple(s + 2 * r for s in shape))
         for acc in accs:
@@ -397,7 +416,7 @@ def check_kernels(torch) -> None:
             rnd = lambda shp: torch.randn(shp, generator=gen, device=dev).to(dtype)
             label = f"{'x'.join(map(str, shape))} {str(dtype).split('.')[-1]}"
             for sname in ("star7", "box27", "star25"):
-                check_stencil(torch, gen, shape, dtype, sname, sname == "star7")
+                check_stencil(torch, gen, shape, dtype, sname)
             check_fused_iter(torch, *scalars(torch), [rnd(math.prod(shape)) for _ in range(5)],
                              label)
             for nb in CHECK_BATCHES:
@@ -409,7 +428,7 @@ def check_kernels(torch) -> None:
     for sname, shapes in SLAB_SHAPES.items():
         for shape in shapes:
             for dtype in (torch.float32, torch.bfloat16):
-                check_stencil(torch, gen, shape, dtype, sname, False)
+                check_stencil(torch, gen, shape, dtype, sname)
     torch.cuda.synchronize()
 
 
@@ -455,7 +474,7 @@ def check_and_time_paper_mesh(torch) -> dict:
     dot_close("dot_mixed", fk.dot_mixed(v[1], v[1]), fref.dot_mixed_ref(v[1], v[1]), v[1], v[1],
               label + " self-dot")
     w = v[4].view(PAPER_MESH)
-    check_stencil7_dot(torch, vp, w, cfs, label + " accum float32")
+    check_stencil7_dot(torch, vp, w, cfs, torch.float32, label)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -473,13 +492,18 @@ def check_and_time_paper_mesh(torch) -> dict:
     rec("dot_mixed", lambda: fk.dot_mixed(v[0], v[1]),
         lambda: fref.dot_mixed_ref(v[0], v[1]), 2 * vec, 2 * n,
         library=lambda: torch.dot(v[0], v[1]))
-    # K6 as solve_ref_fused runs it (<q,y>, <y,y>: the two-dot variant reads
-    # no w of its own, so time the one-dot variant, which reads all 9 words),
-    # beside K1 + K5 on the same inputs
-    k1_k5 = lambda: fk.dot_mixed(v[4], stencil_nd(vp, cfs, spec.offsets, radius=1).view(-1))
+    # K6 as solve_ref_fused runs it: the one-dot variant (<r0,s>) reads w
+    # from memory, 9 words a point, beside K1 with f32 accumulation and K1 +
+    # K5 on the same inputs; the two-dot variant (<q,y>, <y,y>) takes w = q
+    # from its ring, 8 words
+    k1_f32 = lambda: stencil_nd(vp, cfs, spec.offsets, radius=1, accum_dtype=torch.float32)
     rec("stencil7_dot", lambda: stencil7_dots_padded(vp, w, cfs, two_dots=False),
         lambda: stencil7_dots_padded_ref(vp, w, cfs, spec.offsets, two_dots=False),
-        nbytes(vp, w, *cfs) + vec, (2 * spec.n_offsets + 2) * n, k1_plus_k5=k1_k5)
+        nbytes(vp, w, *cfs) + vec, (2 * spec.n_offsets + 2) * n, k1_f32=k1_f32,
+        k1_plus_k5=lambda: fk.dot_mixed(v[4], k1_f32().view(-1)))
+    rec("stencil7_two_dots", lambda: stencil7_dots_padded(vp, None, cfs, two_dots=True),
+        lambda: stencil7_dots_padded_ref(vp, None, cfs, spec.offsets, two_dots=True),
+        nbytes(vp, *cfs) + vec, (2 * spec.n_offsets + 4) * n)
     del vp, cfs, v, w
     torch.cuda.empty_cache()
     # dot_mixed in f32 beside torch.dot on the same f32 inputs
@@ -593,12 +617,15 @@ def iteration_bytes(shape, itemsize: int, radius: int = 1, n_off: int = 6, nrhs:
 
 
 def ref_fused_iteration_bytes(shape, itemsize: int) -> int:
-    """Bytes one ``solve_ref_fused`` iteration must move: 2 zero pads, 2 K6
-    (padded v, 6 fields and w in; u out), the inline q (r, s in; q out),
-    update_xr_dots (7 words) and update_p (4 words)."""
+    """Bytes one ``solve_ref_fused`` iteration must move: 2 zero pads, K6's
+    one-dot variant (padded p, 6 fields and r0 in; s out), its two-dot
+    variant (padded q and 6 fields in, w = q being the padded iterate; y
+    out), the inline q (r, s in; q out), update_xr_dots (7 words) and
+    update_p (4 words)."""
     n = math.prod(shape)
     n_pad = math.prod(s + 2 for s in shape)
-    return (2 * ((n + n_pad) + (n_pad + 8 * n)) + (3 + 7 + 4) * n) * itemsize
+    k6 = (n_pad + 8 * n) + (n_pad + 7 * n)
+    return (2 * (n + n_pad) + k6 + (3 + 7 + 4) * n) * itemsize
 
 
 def ptxas_summary(log: str) -> dict:
@@ -879,6 +906,10 @@ def main(argv=None) -> int:
     check(len(grouped) == 4 * len(GROUP_KERNELS) and all(
         v.get("spill_stores") == 0 and v.get("spill_loads") == 0 for v in grouped.values()),
           f"group kernels spill or are missing from the ptxas log: {grouped}")
+    dots = {k: v for k, v in ptxas.items() if DOT_KERNEL in k}
+    check(len(dots) == DOT_INSTANCES and all(
+        v.get("spill_stores") == 0 and v.get("spill_loads") == 0 for v in dots.values()),
+          f"K6 instances spill or are missing from the ptxas log: {dots}")
 
     # -- phase 2: kernels vs plain versions, then times at the paths' shapes ---
     check_kernels(torch)
@@ -990,7 +1021,7 @@ def main(argv=None) -> int:
                    for r in runs]
     ref_gaps = sorted(abs(r["iterations"] - r["spmd_iterations"]) for r in ref_default)
     emit(dict(phase="ref_fused_default", runs=ref_default, iteration_gaps=ref_gaps))
-    check(ref_gaps[len(ref_gaps) // 2] <= 1,
+    check(ref_gaps[len(ref_gaps) // 2] <= 1 and ref_gaps[-1] <= 2,
           f"solve_ref_fused vs spmd iteration gaps {ref_gaps}: median must be <= 1, max <= 2")
     torch.cuda.empty_cache()
     res7, counts7 = ref_fused_paper_mesh(torch)

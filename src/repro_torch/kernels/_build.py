@@ -35,12 +35,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C entry points -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
     "repro_stencil_nd": [_I, _I, _P, _P, _P, _I, _I, _L, _L, _L, _L, _P, _I, _I, _I, _I, _P],
-    "repro_stencil7_dot": [_I, _I, _P, _P, _P, _I, _L, _L, _L, _P, _P, _P, _P],
+    "repro_stencil7_dot": [_I, _I, _P, _P, _P, _I, _L, _L, _L, _P, _I, _I, _I, _L, _P, _P, _P],
     "repro_update_q_dots": [_I, _P, _P, _P, _P, _P, _P, _P, _L, _L, _P],
     "repro_update_xr_dots": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _P],
     "repro_update_p": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _P],
     "repro_dot_mixed": [_I, _P, _P, _P, _P, _L, _L, _P],
-    "repro_reduce_blocks": [_L],
     "repro_update_q_dots_blocks": [_L],
     "repro_update_xr_dots_blocks": [_L],
     "repro_dot_mixed_blocks": [_L],

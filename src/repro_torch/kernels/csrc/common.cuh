@@ -87,6 +87,26 @@ struct ChunkedSum {
       k = 0;
     }
   }
+  // N terms x[0] .. x[N-1] into the inner sums, and the inner sums into the
+  // outer ones: a caller that adds runs of N terms, N | kChunk, and calls
+  // flush after every kChunk / N runs gets the sums of N calls of add per
+  // run, without the counter's register.
+  template <int N>
+  __device__ __forceinline__ void add_run(const float (&x)[N][ND]) {
+    static_assert(kChunk % N == 0, "runs of N terms tile the chunks");
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+#pragma unroll
+      for (int d = 0; d < ND; ++d) inner[d] = __fadd_rn(inner[d], x[j][d]);
+    }
+  }
+  __device__ __forceinline__ void flush() {
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      outer[d] = __fadd_rn(outer[d], inner[d]);
+      inner[d] = 0.0f;
+    }
+  }
   __device__ __forceinline__ void total(float (&v)[ND]) const {
 #pragma unroll
     for (int d = 0; d < ND; ++d) v[d] = __fadd_rn(outer[d], inner[d]);

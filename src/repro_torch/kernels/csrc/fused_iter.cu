@@ -330,9 +330,6 @@ int repro_update_q_dots_blocks(long long n) { return repro::stream_blocks(n); }
 int repro_update_xr_dots_blocks(long long n) { return repro::reduce_blocks(n); }
 int repro_dot_mixed_blocks(long long n) { return repro::dot_blocks(n); }
 
-// The SpMV's dot epilogue (stencil7_dot.cu) runs on reduce_blocks too.
-int repro_reduce_blocks(long long n) { return repro::reduce_blocks(n); }
-
 // Every entry point runs one pass over B right-hand sides of n points each,
 // back to back, with B scalars of each kind (a 0-d scalar is B = 1), and
 // returns a cudaError_t code (0 on success).  `partials` is f32 scratch of

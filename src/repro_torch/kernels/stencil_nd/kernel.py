@@ -57,6 +57,11 @@ class LaunchPlan:
     def grid(self) -> tuple[int, int, int]:
         return (self.tiles_y * self.tiles_z, self.segments, self.chunks)
 
+    @property
+    def blocks(self) -> int:
+        """Blocks of the grid: one dot partial each in the SpMV+dot kernel."""
+        return self.tiles_y * self.tiles_z * self.segments * self.chunks
+
 
 def launch_plan(shape: tuple[int, int, int], nb: int, n_off: int, radius: int,
                 itemsize: int) -> LaunchPlan:

@@ -52,12 +52,14 @@ def stencil_nd_padded_ref(vp: torch.Tensor, coeffs: list[torch.Tensor], offsets,
     return _padded_accumulate(vp, coeffs, offsets, radius, accum_dtype).to(vp.dtype)
 
 
-def stencil7_dots_padded_ref(vp: torch.Tensor, w: torch.Tensor, coeffs: list[torch.Tensor],
-                             offsets, *, two_dots: bool,
+def stencil7_dots_padded_ref(vp: torch.Tensor, w: torch.Tensor | None,
+                             coeffs: list[torch.Tensor], offsets, *, two_dots: bool,
                              accum_dtype: torch.dtype = torch.float32):
     """(u, <w,u>, <u,u> or None) from the 1-padded block: ``u`` as
     :func:`stencil_nd_padded_ref`, the dots in f32 from the unrounded
-    accumulator and the upcast ``w``."""
+    accumulator and the upcast ``w``; ``w=None`` is the interior of ``vp``."""
+    if w is None:
+        w = vp[1:-1, 1:-1, 1:-1]
     acc = _padded_accumulate(vp, coeffs, offsets, 1, accum_dtype)
     uf = acc.to(torch.float32)
     d1 = (w.to(torch.float32) * uf).sum()

@@ -55,7 +55,6 @@ class _Library:
 
     def __init__(self, sizes):
         self.sizes, self.partials = sizes, {}
-        self.repro_reduce_blocks = lambda n: 1     # the query of no fused pass
         for i, name in enumerate(sorted(DOT_PASSES)):
             setattr(self, f"repro_{name}_blocks", lambda n, i=i: 1000 * (i + 2) + n % 7)
             setattr(self, f"repro_{name}", self._launcher(name))

@@ -28,7 +28,10 @@ from repro_torch.core import bicgstab as tbi  # noqa: E402
 from repro_torch.core import stencil as tst  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.stencil_nd import fused as tfused  # noqa: E402
-from repro_torch.kernels.stencil_nd.ref import stencil_nd_padded_ref  # noqa: E402
+from repro_torch.kernels.stencil_nd.ref import (  # noqa: E402
+    stencil7_dots_padded_ref,
+    stencil_nd_padded_ref,
+)
 
 SHAPES = [(4, 4, 8), (5, 6, 16), (3, 3, 4)]
 _J = {"f32": jnp.float32, "bf16": jnp.bfloat16}
@@ -104,6 +107,48 @@ def test_vector_equals_k1_with_f32_accumulation(dtype):
                                          for o, n in zip(off, q.shape))].float()
     assert_bitwise(yy, (acc * acc).sum())
     assert_bitwise(qy, (q.float() * acc).sum())
+
+
+@pytest.mark.parametrize("two_dots", [False, True])
+@pytest.mark.parametrize("accum", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_w_none_is_the_interior_of_vp(dtype, accum, two_dots):
+    """``w=None`` (the kernel takes w from its ring) gives the bits of the
+    same w passed as a contiguous tensor, at every storage and accumulation
+    dtype, through the plain version and, for the two-dot variant that
+    takes it, the wrapper's CPU path."""
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}
+    rng = np.random.default_rng(11)
+    shape = (5, 6, 7)
+    vp = torch.from_numpy(rng.standard_normal(tuple(s + 2 for s in shape)).astype(np.float32))
+    vp = vp.to(tdt[dtype])
+    cfs = [torch.from_numpy(0.2 * rng.standard_normal(shape).astype(np.float32)).to(tdt[dtype])
+           for _ in range(6)]
+    inner = vp[1:-1, 1:-1, 1:-1].contiguous()
+    kw = dict(two_dots=two_dots, accum_dtype=tdt[accum])
+    want = stencil7_dots_padded_ref(vp, inner, cfs, tst.STAR7.offsets, **kw)
+    gots = [stencil7_dots_padded_ref(vp, None, cfs, tst.STAR7.offsets, **kw)]
+    if two_dots:
+        gots.append(tfused.stencil7_dots_padded(vp, None, cfs, **kw))
+    for got in gots:
+        assert (got[2] is None) == (not two_dots)
+        for g, wt in zip(got, want):
+            if wt is not None:
+                assert_bitwise(g, wt)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_two_dots_takes_q_as_the_padded_iterate(dtype):
+    """stencil7_two_dots(coeffs, q) is the padded-level plain version with
+    w = q passed as a tensor of its own."""
+    _, ct, q, _ = _inputs((4, 5, 9), dtype, seed=7)
+    q = to_t(q)
+    got = tfused.stencil7_two_dots(ct, q)
+    want = stencil7_dots_padded_ref(torch.nn.functional.pad(q, (1, 1) * 3), q,
+                                    [ct.diags[n] for n in tst.STAR7.names], tst.STAR7.offsets,
+                                    two_dots=True)
+    for g, wt in zip(got, want):
+        assert_bitwise(g, wt)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():

@@ -4,14 +4,19 @@ The CUDA kernel runs only on the card; the plan that cuts its launches into
 (y, z) tiles, x segments and right-hand-side chunks is plain Python, checked
 here for every family spec, both storage dtypes, B in {1, 3, 4} and the
 shapes the kernel meets: the paths' blocks, ``chip_smoke.py``'s check
-shapes and the overlap schedule's ring slabs.
+shapes and the overlap schedule's ring slabs.  The SpMV+dot kernel (K6,
+``csrc/stencil7_dot.cu``) takes the star7 plan for one RHS, and sizes its
+dot partials by the plan's block count.
 """
+
+import re
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import stencil  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.stencil_nd.kernel import FAMILY, SMEM_BYTES, launch_plan  # noqa: E402
 
 SHAPES = [(608, 608, 1536), (608, 608, 608),                        # the paths
@@ -48,3 +53,29 @@ def test_launch_plan_takes_only_family_specs():
         launch_plan((8, 8, 8), 1, 6, 2, 2)
     with pytest.raises(ValueError, match="bf16 or f32"):
         launch_plan((8, 8, 8), 1, 6, 1, 8)
+
+
+K6_SHAPES = [(608, 608, 1536), (48, 48, 32), (37, 29, 17),          # solve_ref_fused, checks
+             (1, 29, 17), (37, 1, 17), (37, 29, 1), (3, 7, 17)]     # thin blocks
+
+
+@pytest.mark.parametrize("shape", K6_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "f32"])
+def test_k6_plan_one_partial_per_block(itemsize, shape):
+    """K6's grid: (y, z) tiles by x segments, one RHS, each block with
+    planes to march and one partial per dot; a ring of 4 planes of one RHS
+    leaves room on an SM for the blocks K6's register budget is set for
+    (``kMinBlocksDot``)."""
+    bx, by, z = shape
+    p = launch_plan(shape, 1, 6, 1, itemsize)
+    vz = 16 // itemsize
+    assert p.chunk == p.chunks == 1 and p.grid[2] == 1
+    assert p.blocks == p.grid[0] * p.grid[1] == (-(-by // p.ty)) * (-(-z // p.tz)) * (
+        -(-bx // p.seg_len))
+    assert (p.segments - 1) * p.seg_len < bx          # no segment without planes
+    assert p.smem_bytes == 4 * (p.ty + 2) * (p.tz + 2 * vz) * itemsize <= 48 * 1024
+    min_blocks = re.search(r"constexpr int kMinBlocksDot = (\d+);",
+                           (_build.CSRC / "stencil7_dot.cu").read_text())
+    assert min_blocks and int(min_blocks.group(1)) * (p.smem_bytes + 1024) <= 228 * 1024
+    if shape == (608, 608, 1536):                      # the card filled several times over
+        assert p.blocks >= 4 * 132 and p.blocks <= 2 ** 31 - 1
