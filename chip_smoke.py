@@ -42,11 +42,13 @@ Phases (one line of output each, JSON where it carries numbers):
 3. the CLI's default problem (48x48x32 convdiff star7, f32, tol 1e-6)
    through ``--backend fused`` for seeds 0-4: each must converge to a true
    relative residual below 1e-5, with the kernels' launch counts, and its
-   iteration count must stay within 1 of the ``spmd`` backend's on the median
-   seed and within 2 on every seed.  The same solves with the fused path's
-   dots summed in the spmd backend's order (``Policy.dot``) must give the
-   spmd solve bit for bit, iteration count included: the two paths differ
-   only in the dots' summation order, which alone moves a count by up to 2;
+   iteration count must stay within 8 of the ``spmd`` backend's on every
+   seed (``SEED_GAP``) and within 2 on the mean over the seeds
+   (``MEAN_GAP``).  The same solves with the fused
+   path's dots summed in the spmd backend's order (``Policy.dot``) must give
+   the spmd solve bit for bit, iteration count included: the two paths
+   differ only in the dots' summation order, which alone moves one seed's
+   count by several iterations;
 4. the paper's mesh (``cs1_paper``, 608x608x1536, star7 convdiff,
    ``bf16_mixed``) through ``--backend fused`` for 30 iterations at tol 0:
    ms/iter, GB/s against the bytes an iteration must move, finite residuals
@@ -63,16 +65,47 @@ Phases (one line of output each, JSON where it carries numbers):
    iteration count equal an unbatched fused solve of that RHS bit for bit,
    and a (1,)+shape solve equals the unbatched one bit for bit;
 7. ``solve_ref_fused``: at the default cell, f32, seeds 0-4, it converges
-   and, like the fused path in phase 3, its iteration count stays within 1
-   of the ``spmd`` backend's on the median seed and within 2 on every seed
-   (the fused path's ``dot_mixed`` and this path's SpMV epilogue sum
-   <r0,s> in different orders, so the two fused paths are each held to
-   spmd, not to each other); at 608x608x1536 in bf16 it
+   and, like the fused path in phase 3, its counts stay within 8 of the
+   ``spmd`` backend's on every seed and within 2 on the mean (the fused
+   path's ``dot_mixed`` and this
+   path's SpMV epilogue sum <r0,s> in different orders, so the two fused
+   paths are each held to spmd, not to each other); at 608x608x1536 in bf16 it
    runs 30 iterations with exactly 2 K6 and 1 each of K3 and K4 per
    iteration, timed against its own bytes model.
+8. the solver and preconditioner stack.  (a) At the default cell, f32,
+   seeds 0-4, ``--maxiter 2000``: ``cg`` and ``pipelined_cg`` (tol 1e-5) on
+   poisson, ``pipelined_bicgstab`` on convdiff, BiCGStab with ``--precond
+   chebyshev --cheb-degree 3`` on poisson and with ``--precond jacobi`` on
+   heterogeneous, each through the CLI's fused path and the spmd backend,
+   with each path's limits in ``SLICE_PATHS``: both converge to a true
+   relative residual below 10 x tol (20 x for the pipelined solvers, whose
+   recurrence norm drifts from the true residual; the Jacobi run may
+   instead stop at a flagged breakdown, as the JAX package's does on this
+   family), and the fused launch counts are exact.  The fused kernels with
+   spmd-order dots give the plain solve bit for bit, iteration count and
+   breakdown included: the spmd solve, or for Jacobi's raw diagonal the
+   spmd apply with the diagonal split off as the fused operator splits it
+   (``spmd_split``); that SpMV is also held to spmd's unsplit one within 8
+   f32 epsilons of its terms.  ``cg`` and Chebyshev keep the gap rule phase
+   3 had before the seed repair (median gap within 1, every gap within 2),
+   and Chebyshev takes at most 0.7 x plain BiCGStab's iterations on both
+   backends.  ``--refine`` (bf16 inner
+   solves, convdiff) falls at every outer step to below 1e-5 and launches
+   no kernel; ``cg`` and ``pipelined_bicgstab`` with 4 RHS equal their solo
+   fused solves bit for bit per RHS; and ``make_iteration_fn
+   (backend="fused")`` on the fused loop's initial state gives its first
+   step bit for bit.  (b) Each path at 608x608x1536, ``bf16_mixed``, 30
+   iterations at tol 0 through the CLI: ms/iter against its bytes model,
+   peak memory, finite residuals below 1 (pipelined CG's true residual
+   drifts in bf16 whatever the dots' rounding: below 100, and the kernels
+   with spmd-order dots must give the spmd solve of the same system bit for
+   bit), exact launch counts; and one
+   ``make_iteration_fn`` call timed beside phase 4.  (c) The same seed
+   draws the same coefficients and x_true for the card as for the CPU, bit
+   for bit (whether b is equal is recorded).
 
 ``--profile`` adds a torch.profiler trace of a few iterations of each
-measured path (phases 4, 5 and 7): device time by kernel and the card's
+measured path (phases 4, 5, 7 and 8b): device time by kernel and the card's
 idle share.
 
 The ``kernels`` line lists every kernel with the launches of the path that
@@ -84,13 +117,16 @@ record goes to ``--out`` (default ``build/chip_smoke.json``).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
 import subprocess
 import sys
 import time
+from collections.abc import Callable
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 
@@ -645,6 +681,38 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
+#: phases 3 and 7 hold a fused BiCGStab path's f32 iteration count to spmd's
+#: on every seed within SEED_GAP and on the mean over seeds 0-4 within
+#: MEAN_GAP.  The dots' summation order alone moves one seed's count on
+#: convdiff: over seeds 0-19 of the default cell on an H100
+#: (scripts/iteration_gaps.py), the fused path and solve_ref_fused each read
+#: up to 6 iterations from spmd's, and the same spmd solve on the card and on
+#: the CPU up to 4, with no kernel involved; the signed gaps averaged +0.00,
+#: -0.10 and +0.10.  A kernel whose dots slowed or sped convergence would move
+#: the mean; one that broke a seed would pass SEED_GAP.
+SEED_GAP, MEAN_GAP = 8, 2
+#: 8a's ``cg`` and Chebyshev keep the rule phases 3 and 7 had before the seed
+#: repair: the median gap within 1, every gap within 2 (over seeds 0-19 on an
+#: H100 their largest gaps read 0 and 3; seeds 0-4, 0 and 2)
+MEDIAN_GAP, EVERY_GAP = 1, 2
+
+
+def gap_check(what: str, signed: list[int], every: int, median: int | None = None,
+              mean: int | None = None) -> dict:
+    """The signed iteration gaps of a fused path against spmd: each within
+    ``every``, and their median and mean within the limits given."""
+    mid, avg = sorted(signed)[len(signed) // 2], sum(signed) / len(signed)
+    check(max(map(abs, signed)) <= every,
+          f"{what} iteration gaps {signed}: each must be within +-{every}")
+    if median is not None:
+        check(abs(mid) <= median, f"{what} iteration gaps {signed}: the median {mid:+d} "
+                                  f"must be within +-{median}")
+    if mean is not None:
+        check(abs(avg) <= mean, f"{what} iteration gaps {signed}: the mean {avg:+.2f} "
+                                f"must be within +-{mean}")
+    return dict(iteration_gaps=signed, median_gap=mid, mean_gap=avg)
+
+
 def run_cli(argv):
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import solve
@@ -668,10 +736,9 @@ def expected_counts(iters: int, batched: bool = False) -> dict:
 
 def with_spmd_dots(op):
     """The fused operator with every dot partial taken as the spmd backend
-    takes it (``Policy.dot``): the kernels' vector outputs stay, only the
-    dots' summation order changes."""
-    import dataclasses
-
+    takes it (``Policy.dot``), in the fused passes and in ``op.dots`` (the
+    generic loops' dots): the kernels' vector outputs stay, only the dots'
+    summation order changes."""
     from repro_torch.core.operator import FusedOps
 
     d, f = op.policy.dot, op.fused
@@ -684,9 +751,10 @@ def with_spmd_dots(op):
         x, r = f.update_xr_dots(alpha, omega, x, p, q, y, r0)[:2]
         return x, r, d(r0, r), d(r, r)
 
-    return dataclasses.replace(op, fused=FusedOps(
-        dot_partial=d, update_q_dots=update_q_dots, update_xr_dots=update_xr_dots,
-        update_p=f.update_p))
+    return dataclasses.replace(
+        op, dots=lambda pairs, policy: op.reduce_partials([policy.dot(a, b) for a, b in pairs]),
+        fused=FusedOps(dot_partial=d, update_q_dots=update_q_dots,
+                       update_xr_dots=update_xr_dots, update_p=f.update_p))
 
 
 def dot_order_matched(torch, seed: int) -> dict:
@@ -758,9 +826,9 @@ def batched_semantics(torch, seed: int) -> dict:
 
 
 def ref_fused_default(torch, seed: int, spmd_iterations: int, fused_iterations: int) -> dict:
-    """solve_ref_fused at the default cell, f32, tol 1e-6: it must converge,
-    within 2 iterations of the spmd solve (phase 3 holds the fused path to
-    the same bound); the gap to the fused path is recorded beside it."""
+    """solve_ref_fused at the default cell, f32, tol 1e-6: it must converge
+    to a true relative residual below 1e-5; its count against spmd's goes to
+    phase 7's gap rule, and the gap to the fused path is recorded beside it."""
     from repro_torch.core import bicgstab, stencil
     from repro_torch.launch import solve
 
@@ -770,8 +838,7 @@ def ref_fused_default(torch, seed: int, spmd_iterations: int, fused_iterations: 
     out = dict(seed=seed, iterations=int(res.iterations), converged=bool(res.converged),
                spmd_iterations=spmd_iterations, fused_iterations=fused_iterations,
                true_rel_residual=solve._true_rel_residual(cf, res.x, b))
-    check(out["converged"] and out["true_rel_residual"] < 1e-5
-          and abs(out["iterations"] - spmd_iterations) <= 2,
+    check(out["converged"] and out["true_rel_residual"] < 1e-5,
           f"seed {seed}: solve_ref_fused {out}")
     return out
 
@@ -811,6 +878,489 @@ def ref_fused_paper_mesh(torch, iters: int = MAIN_ITERS) -> tuple[dict, dict]:
     return out, counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the solver and preconditioner stack
+# ---------------------------------------------------------------------------
+
+SLICE_MAXITER = 2000
+CHEB_DEGREE = 3
+
+
+class SlicePath(NamedTuple):
+    """One path of phase 8 and the limits of its own checks.
+
+    ``launches(n)`` gives (K1, K5, each of K2-K4) over a fused solve of n
+    iterations from x0 = None, the setup's 2 dots included; a Chebyshev apply
+    of degree d runs d - 1 stencils, so each wrapped SpMV costs d and the
+    unwrap at the end d - 1."""
+
+    solver: str
+    problem: str
+    precond: str
+    tol: float                        #: 8a, f32
+    launches: Callable[[int], tuple[int, int, int]]
+    #: 8a: the true relative residual must fall below this multiple of tol
+    residual_factor: float = 10
+    #: 8a: the fused-spmd iteration gaps keep MEDIAN_GAP and EVERY_GAP
+    #: (otherwise they are recorded)
+    gap_rule: bool = False
+    #: 8a: a flagged breakdown with finite residuals ends the solve as well
+    may_break_down: bool = False
+    #: 8a: at most this multiple of plain BiCGStab's iterations, both backends
+    lever: float | None = None
+    #: 8a: 4 RHS, each bit for bit its solo solve
+    batched: bool = False
+    #: 8b: the true relative residual must fall below this
+    true_residual_max: float = 1
+    #: 8b: the kernels with spmd-order dots must also give the plain solve
+    #: of the same system bit for bit (:func:`plain_at_paper_mesh`)
+    plain_at_paper_mesh: bool = False
+
+
+#: the paths of phase 8 (solver, problem, preconditioner at the default cell and
+#: at the paper mesh).  Pipelined CG runs at its f32 floor, tol 1e-5.  The
+#: pipelined loops test a carried recurrence norm that drifts from the true
+#: residual: over seeds 0-19 of the default cell on an H100
+#: (scripts/iteration_gaps.py) the true residual read up to 10.0 x tol
+#: (pipelined_cg) and 15.5 x (pipelined_bicgstab).  In bf16 pipelined CG's x
+#: drifts from its recurrence residual, as the JAX package's does
+#: (tests/test_torch_solvers.py::test_bf16_pipelined_cg_drifts_as_jax), by
+#: an amount that no rounding order controls: at 608x608x1536, 30
+#: iterations, seeds 0-2 on an H100 (scripts/pipelined_drift.py) its true
+#: residual read 37.7, 0.31 and 0.87 through the kernels and 0.40, 2.0 and
+#: 6.2 through the spmd backend, all with recurrence residuals of 0.036-0.27.
+#: So at the paper mesh it is bounded by 100, and the kernels with
+#: spmd-order dots must give the spmd solve bit for bit there.
+#: f32 BiCGStab with Jacobi on the raw heterogeneous operator (couplings
+#: spanning ~3e7) breaks down or stalls on some seeds in the JAX package too
+#: (tests/test_torch_precond.py::test_jax_jacobi_also_fails_on_the_heterogeneous_family),
+#: so a flagged breakdown ends that run; the fused kernels must still give
+#: the plain solve bit for bit, breakdown included.
+SLICE_PATHS = {
+    "cg": SlicePath("cg", "poisson", "none", 1e-6, lambda n: (n, 2 * n + 2, 0),
+                    gap_rule=True, batched=True),
+    "pipelined_cg": SlicePath("pipelined_cg", "poisson", "none", 1e-5,
+                              lambda n: (n + 1, 2 * n + 2, 0), residual_factor=20,
+                              true_residual_max=100, plain_at_paper_mesh=True),
+    "pipelined_bicgstab": SlicePath("pipelined_bicgstab", "convdiff", "none", 1e-6,
+                                    lambda n: (2 * n + 2, 12 * n + 2, 0), residual_factor=20,
+                                    batched=True),
+    "chebyshev": SlicePath("bicgstab", "poisson", "chebyshev", 1e-6,
+                           lambda n: (2 * CHEB_DEGREE * n + CHEB_DEGREE - 1, n + 2, n),
+                           gap_rule=True, lever=0.7),
+    "jacobi": SlicePath("bicgstab", "heterogeneous", "jacobi", 1e-6,
+                        lambda n: (2 * n, n + 2, n), may_break_down=True),
+}
+
+
+def path_flags(path: SlicePath) -> list[str]:
+    """The CLI flags that select ``path``."""
+    return ["--solver", path.solver, "--problem", path.problem, "--precond", path.precond,
+            "--cheb-degree", str(CHEB_DEGREE)]
+
+
+def slice_counts(path: SlicePath, iters: int, batched: bool = False, dots: bool = True) -> dict:
+    """Every kernel's launches over a fused solve of ``path`` that ran
+    ``iters`` iterations from x0 = None.  ``dots=False``: the dots were taken
+    in the spmd order, so no ``dot_mixed`` ran."""
+    k1, k5, passes = path.launches(iters)
+    sfx = "_batched" if batched else ""
+    counts = {k: 0 for k in KERNELS}
+    counts.update({"stencil_nd" + sfx: k1, "dot_mixed" + sfx: k5 if dots else 0})
+    for name in ("update_q_dots", "update_xr_dots", "update_p"):
+        counts[name + sfx] = passes
+    return counts
+
+
+def slice_iteration_bytes(label: str, shape, itemsize: int) -> int:
+    """Bytes one iteration of path ``label`` must move in ``bf16_mixed``
+    (every vector in the storage dtype): each statement's tensor inputs read
+    once and its output written once, as :func:`iteration_bytes` counts.  An
+    SpMV is the zero pad and the stencil kernel; a dot reads 2 words, an
+    AXPY 2 and writes 1, ``axpy2`` reads 3.  Preconditioned BiCGStab is the
+    fused iteration (20 words beside its SpMVs) with each SpMV wrapped:
+    Chebyshev adds d - 1 SpMVs and 2 + 9 (d - 1) words (``r * 1/theta``,
+    then per step ``r - Ad``, ``a d + b r``, ``z + d``), Jacobi 3 words
+    (``v * 1/diag``) and the raw diagonal's ``u + (d - 1) v``, 4."""
+    n = math.prod(shape)
+    n_pad = math.prod(s + 2 for s in shape)
+    spmv = (n + n_pad) + (n_pad + 6 * n + n)
+    d = CHEB_DEGREE
+    words = {
+        "cg": spmv + (2 * 2 + 3 * 3) * n,
+        "pipelined_cg": spmv + (2 * 2 + 6 * 3) * n,
+        "pipelined_bicgstab": 2 * spmv + (12 * 2 + 7 * 3 + 4) * n,
+        "chebyshev": 2 * (d * spmv + (2 + 9 * (d - 1)) * n) + 20 * n,
+        "jacobi": 2 * (spmv + 7 * n) + 20 * n,
+    }[label]
+    return words * itemsize
+
+
+def run_cli_quiet(argv):
+    """``run_cli`` with the CLI's own lines kept off the output."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return run_cli(argv)
+
+
+def converged_within(res: dict, path: SlicePath) -> bool:
+    """The solve converged to a true relative residual below
+    ``path.residual_factor`` x tol, or (``path.may_break_down``) stopped at
+    a flagged breakdown with a finite residual."""
+    if res["converged"] and res["true_rel_residual"] < path.residual_factor * path.tol:
+        return True
+    return path.may_break_down and res["breakdown"] and math.isfinite(res["rel_residual"])
+
+
+def spmd_split(cf, policy):
+    """The spmd operator with a raw main diagonal split as the fused operator
+    splits it: the unit-diagonal halo apply, then ``(d - 1) v`` added in the
+    compute dtype, plain tensor ops throughout.  On a unit-diagonal operator
+    it is the spmd operator."""
+    from repro_torch.core.operator import make_operator
+    from repro_torch.core.stencil import StencilCoeffs
+
+    if cf.diag is None:
+        return make_operator("spmd", cf, policy=policy)
+    unit = make_operator("spmd", StencilCoeffs(cf.diags), policy=policy)
+    c, raw = policy.compute, cf.astype(policy.storage)
+    dcorr = raw.diag.to(c) - 1
+
+    def apply(v):
+        return (unit.apply(v).to(c) + dcorr * v.to(c)).to(policy.storage)
+
+    return dataclasses.replace(unit, coeffs=raw, apply=apply)
+
+
+def slice_semantics(torch, label: str, seed: int) -> dict:
+    """Path ``label`` at the default cell through the CLI's fused path and
+    the spmd backend, each held to the path's limits; the fused kernels with
+    spmd-order dots against :func:`spmd_split`, bit for bit; on a raw
+    diagonal, the fused SpMV against spmd's; with a lever, plain BiCGStab on
+    the same system, on both backends."""
+    from repro_torch.core import precision, stencil
+    from repro_torch.core.operator import make_operator
+    from repro_torch.core.precond import PrecondConfig, build_precond
+    from repro_torch.core.solvers import get_solver
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import solve
+
+    path = SLICE_PATHS[label]
+    tol = path.tol
+    fused, counts = run_cli_quiet(["--backend", "fused", "--policy", "f32", "--seed", str(seed),
+                                   *path_flags(path), "--tol", str(tol),
+                                   "--maxiter", str(SLICE_MAXITER)])
+    _, cf, b = solve.manufactured_system(path.problem, stencil.STAR7, DEFAULT_MESH, seed=seed,
+                                         device=torch.device("cuda"))
+    f32 = precision.F32
+
+    def direct(op, pc=path.precond):
+        m = build_precond(PrecondConfig(name=pc, degree=CHEB_DEGREE), op)
+        return get_solver(path.solver)(op, b, None, tol=tol, maxiter=SLICE_MAXITER, policy=f32,
+                                       precond=m)
+
+    spmd = direct(make_operator("spmd", cf, policy=f32))
+    sp = dict(converged=bool(spmd.converged), breakdown=bool(spmd.breakdown),
+              rel_residual=float(spmd.rel_residual),
+              true_rel_residual=solve._true_rel_residual(cf, spmd.x, b))
+    out = dict(seed=seed, iterations=fused["iterations"], spmd_iterations=int(spmd.iterations),
+               converged=fused["converged"], breakdown=fused["breakdown"],
+               true_rel_residual=fused["true_rel_residual"],
+               spmd_converged=sp["converged"], spmd_breakdown=sp["breakdown"],
+               spmd_true_rel_residual=sp["true_rel_residual"], launches=counts)
+    check(converged_within(fused, path) and converged_within(sp, path),
+          f"{label} seed {seed}: fused {fused['converged']}/{fused['true_rel_residual']:.3e}, "
+          f"spmd {sp['converged']}/{sp['true_rel_residual']:.3e} against tol {tol}")
+    check(counts == slice_counts(path, fused["iterations"]),
+          f"{label} seed {seed}: launch counts {counts}")
+    plain = spmd if cf.diag is None else direct(spmd_split(cf, f32))
+    reset_launch_counts()
+    var = direct(with_spmd_dots(make_operator("fused", cf, policy=f32)))
+    counts_sd = launch_counts()
+    it = int(var.iterations)
+    out.update(spmd_order_iterations=it, spmd_split_iterations=int(plain.iterations),
+               spmd_order_bitwise=(bool(var.x.equal(plain.x)) and it == int(plain.iterations)
+                                   and bool(var.breakdown) == bool(plain.breakdown)))
+    check(out["spmd_order_bitwise"],
+          f"{label} seed {seed}: fused with spmd-order dots ({it} iterations) is not the "
+          f"plain solve ({int(plain.iterations)}) bit for bit")
+    check(counts_sd == slice_counts(path, it, dots=False),
+          f"{label} seed {seed}: spmd-order-dot launch counts {counts_sd}")
+    if cf.diag is not None:
+        out["apply_err_over_scale"] = raw_diag_apply_err(torch, cf, seed)
+        check(out["apply_err_over_scale"] <= 8 * EPS_F32,
+              f"{label} seed {seed}: the fused apply is {out['apply_err_over_scale']:.3e} of its "
+              f"terms' scale from spmd's")
+    if path.lever is not None:
+        out["plain_iterations"] = int(direct(make_operator("fused", cf, policy=f32),
+                                             pc="none").iterations)
+        out["plain_spmd_iterations"] = int(direct(make_operator("spmd", cf, policy=f32),
+                                                  pc="none").iterations)
+        check(out["iterations"] <= path.lever * out["plain_iterations"]
+              and out["spmd_iterations"] <= path.lever * out["plain_spmd_iterations"],
+              f"{label} seed {seed}: {out['iterations']}/{out['spmd_iterations']} iterations "
+              f"against plain BiCGStab's {out['plain_iterations']}/"
+              f"{out['plain_spmd_iterations']}")
+    return out
+
+
+def raw_diag_apply_err(torch, cf, seed: int) -> float:
+    """The SpMV of a raw-diagonal operator on a Jacobi-preconditioned vector
+    u = D^-1 v, fused (the unit-diagonal kernel plus the raw diagonal's
+    (d - 1) u, plain ops) against spmd's (d u plus the neighbours): the
+    largest difference over the scale of each row's terms,
+    (1 + |d| + |d - 1|) |u| + sum |c| |u_nb|.  Both round each op to f32, in
+    other orders, so a few f32 epsilons."""
+    from repro_torch.core import precision, stencil
+    from repro_torch.core.operator import make_operator
+    from repro_torch.core.precond import PrecondConfig, build_precond
+
+    dev = torch.device("cuda")
+    f32 = precision.F32
+    spmd = make_operator("spmd", cf, policy=f32)
+    v = torch.randn(cf.shape, generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+    u = build_precond(PrecondConfig(name="jacobi"), spmd).apply(v)
+    d = cf.diag
+    scale = stencil.apply_ref(stencil.StencilCoeffs({n: c.abs() for n, c in cf.diags.items()},
+                                                    diag=1 + d.abs() + (d - 1).abs()), u.abs())
+    diff = make_operator("fused", cf, policy=f32).apply(u) - spmd.apply(u)
+    return float((diff.abs() / scale).max())
+
+
+def slice_batched(torch, label: str, seed: int) -> dict:
+    """Path ``label`` with 4 RHS at the default cell through the batched
+    kernels: each RHS's x and count equal its solo fused solve bit for bit."""
+    from repro_torch.core import bicgstab, precision, stencil
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import solve
+    from repro_torch.launch.mesh import make_mesh_for_devices
+
+    path = SLICE_PATHS[label]
+    _, cf, b = solve.manufactured_system(path.problem, stencil.STAR7, DEFAULT_MESH, seed=seed,
+                                         device=torch.device("cuda"), nrhs=MAIN_NRHS)
+    mesh = make_mesh_for_devices()
+    kw = dict(tol=path.tol, maxiter=SLICE_MAXITER, policy=precision.F32, solver=path.solver,
+              backend="fused")
+    reset_launch_counts()
+    rb = bicgstab.solve_distributed(mesh, cf, b, **kw)
+    counts = launch_counts()
+    its = rb.iterations.tolist()
+    solo = [bicgstab.solve_distributed(mesh, cf, b[i], **kw) for i in range(MAIN_NRHS)]
+    out = dict(path=label, seed=seed, iterations=its, converged=rb.converged.tolist(),
+               solo_iterations=[int(r.iterations) for r in solo], launches=counts,
+               per_rhs_bitwise=[bool(rb.x[i].equal(r.x)) and its[i] == int(r.iterations)
+                                for i, r in enumerate(solo)])
+    check(all(out["converged"]), f"{label} batched seed {seed}: converged {out['converged']}")
+    check(all(out["per_rhs_bitwise"]),
+          f"{label} batched seed {seed}: RHS not bitwise their solo solves {out}")
+    check(counts == slice_counts(path, max(its), batched=True),
+          f"{label} batched seed {seed}: launch counts {counts}")
+    return out
+
+
+def iteration_fn_first_step(torch) -> dict:
+    """``make_iteration_fn(backend="fused")`` called on the fused loop's
+    initial state (the default cell, f32, seed 0) against the loop's first
+    step, read by wrapping the loop's ``run_krylov``: all five outputs bit
+    for bit."""
+    from repro_torch.core import bicgstab, precision, stencil
+    from repro_torch.core.operator import make_operator
+    from repro_torch.core.solvers import bicgstab as loops
+    from repro_torch.launch import solve
+    from repro_torch.launch.mesh import make_mesh_for_devices
+
+    _, cf, b = solve.manufactured_system(None, stencil.STAR7, DEFAULT_MESH, seed=0,
+                                         device=torch.device("cuda"))
+    op = make_operator("fused", cf, policy=precision.F32)
+    seen, real = {}, loops.run_krylov
+
+    def spy(step, init, **kw):
+        seen["init"], seen["step"] = init, step(init)
+        return real(step, init, **kw)
+
+    loops.run_krylov = spy
+    try:
+        loops.bicgstab_fused_loop(op, b, None, tol=0.0, maxiter=1, policy=precision.F32)
+    finally:
+        loops.run_krylov = real
+    _, x0, r0, p0, rho0, *_ = seen["init"]
+    it = bicgstab.make_iteration_fn(make_mesh_for_devices(), policy=precision.F32,
+                                    backend="fused")
+    got = it(op.coeffs, x0, r0, p0, r0, rho0)
+    same = [bool(g.equal(w)) for g, w in zip(got, seen["step"][1:6])]
+    check(len(same) == 5 and all(same),
+          f"make_iteration_fn's first call is not the fused loop's first step: {same}")
+    return dict(outputs_bitwise=same)
+
+
+def slice_full_width(torch, label: str, smi: str) -> dict:
+    """Path ``label`` at 608x608x1536, ``bf16_mixed``, through the CLI's
+    fused path for 30 iterations at tol 0."""
+    path = SLICE_PATHS[label]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, counts = run_cli(["--mesh", *(str(s) for s in PAPER_MESH), "--backend", "fused",
+                           "--policy", "bf16_mixed", "--tol", "0", "--maxiter", str(MAIN_ITERS),
+                           *path_flags(path)])
+    moved = slice_iteration_bytes(label, PAPER_MESH, 2)
+    res.update(phase="slice_full_width", path=label, card=smi, bytes_per_iter=moved,
+               gb_per_s=moved / (res["ms_per_iter"] * 1e-3) / 1e9,
+               bound_ms_per_iter=moved / PEAK_BYTES_PER_S * 1e3,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts,
+               launches_per_iter={k: v / MAIN_ITERS for k, v in counts.items() if v})
+    resid = (res["rel_residual"], res["true_rel_residual"])
+    check(all(math.isfinite(v) for v in resid) and res["rel_residual"] < 1
+          and res["true_rel_residual"] < path.true_residual_max,
+          f"{label} at the paper mesh: residuals {resid}")
+    check(res["iterations"] == MAIN_ITERS and not res["breakdown"],
+          f"{label} at the paper mesh ran {res['iterations']} iterations "
+          f"(breakdown {res['breakdown']})")
+    check(counts == slice_counts(path, MAIN_ITERS),
+          f"{label} at the paper mesh: launch counts {counts}")
+    if path.plain_at_paper_mesh:
+        res["plain"] = plain_at_paper_mesh(torch, label)
+    return res
+
+
+def plain_at_paper_mesh(torch, label: str) -> dict:
+    """The CLI's system of path ``label`` (seed 0) at 608x608x1536,
+    ``bf16_mixed``, 30 iterations at tol 0: the fused kernels with
+    spmd-order dots against the plain solve (:func:`spmd_split`), x bit for
+    bit; recorded beside it, the plain solve's residuals, and whether the
+    solve with K5's plain version as its dots gives the kernels' x."""
+    from repro_torch.core import precision, stencil
+    from repro_torch.core.operator import make_operator
+    from repro_torch.core.precond import PrecondConfig, build_precond
+    from repro_torch.core.solvers import get_solver
+    from repro_torch.kernels.fused_iter.ref import dot_mixed_ref
+    from repro_torch.launch import solve
+
+    path, mixed = SLICE_PATHS[label], precision.MIXED
+    torch.cuda.empty_cache()
+    _, cf, b = solve.manufactured_system(path.problem, stencil.STAR7, PAPER_MESH, seed=0,
+                                         device=torch.device("cuda"), solver=path.solver)
+
+    def run(op):
+        m = build_precond(PrecondConfig(name=path.precond, degree=CHEB_DEGREE), op)
+        return get_solver(path.solver)(op, b, None, tol=0.0, maxiter=MAIN_ITERS, policy=mixed,
+                                       precond=m)
+
+    plain_op = spmd_split(cf, mixed)
+    plain = run(plain_op)
+    var = run(with_spmd_dots(make_operator("fused", cf, policy=mixed)))
+    out = dict(rel_residual=float(plain.rel_residual),
+               true_rel_residual=solve._true_rel_residual(cf, plain.x, b),
+               spmd_order_bitwise=bool(var.x.equal(plain.x)))
+    del var
+    check(out["spmd_order_bitwise"],
+          f"{label} at the paper mesh: the kernels with spmd-order dots are not the plain solve")
+    fused = run(make_operator("fused", cf, policy=mixed))
+    k5 = run(dataclasses.replace(plain_op, dots=lambda pairs, p: plain_op.reduce_partials(
+        [dot_mixed_ref(a, c) for a, c in pairs])))
+    out["k5_plain_dots_bitwise"] = bool(fused.x.equal(k5.x))
+    del cf, b, plain, fused, k5
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_iteration_fn(torch, smi: str, phase4_ms: float) -> dict:
+    """One ``make_iteration_fn(backend="fused")`` call at the paper mesh in
+    ``bf16_mixed`` (CUDA events, mean of 5 after 1 warm-up), beside phase
+    4's ms/iter, with its launch counts and the iteration's bytes bound."""
+    from repro_torch.core import bicgstab, precision, stencil
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_mesh_for_devices
+
+    dev, mixed = torch.device("cuda"), precision.MIXED
+    torch.cuda.empty_cache()
+    cf = stencil.convection_diffusion(PAPER_MESH, device=dev).astype(torch.bfloat16)
+    r = torch.randn(PAPER_MESH, generator=torch.Generator(device=dev).manual_seed(4),
+                    device=dev).to(torch.bfloat16)
+    x, rho = torch.zeros_like(r), mixed.dot(r, r)
+    it = bicgstab.make_iteration_fn(make_mesh_for_devices(), policy=mixed, backend="fused")
+    reset_launch_counts()
+    it(cf, x, r, r, r, rho)
+    counts = launch_counts()
+    ms = cuda_ms(torch, lambda: it(cf, x, r, r, r, rho), n=5, warmup=1)
+    moved = iteration_bytes(PAPER_MESH, 2)
+    want = dict(expected_counts(1), dot_mixed=1)
+    check(counts == want, f"make_iteration_fn launch counts {counts} != {want}")
+    del cf, r, x
+    torch.cuda.empty_cache()
+    return dict(phase="iteration_fn", card=smi, shape=list(PAPER_MESH), dtype="bfloat16",
+                ms=ms, phase4_ms_per_iter=phase4_ms, bytes=moved,
+                bound_ms=moved / PEAK_BYTES_PER_S * 1e3, launches=counts)
+
+
+def draw_check(torch) -> dict:
+    """8c: at the default cell, seeds 0-4, the default, heterogeneous and
+    random problems: the coefficients and x_true drawn for the card equal
+    those drawn for the CPU bit for bit; whether ``b = A x_true`` does too is
+    recorded."""
+    from repro_torch.core import stencil
+    from repro_torch.launch import solve
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    rows = []
+    for seed in range(PHASE3_SEEDS):
+        for problem in (None, "heterogeneous", "random"):
+            drawn = []
+            for dev in (cuda, cpu):
+                name, cf = solve.manufactured_problem(problem, stencil.STAR7, DEFAULT_MESH,
+                                                      seed=seed, device=dev)
+                x = solve.manufactured_solution(DEFAULT_MESH, seed=seed, device=dev)
+                drawn.append((cf, x, stencil.rhs_for_solution(cf, x)))
+            (cg, xg, bg), (cc, xc, bc) = drawn
+            fields = lambda c: list(c.diags.values()) + ([] if c.diag is None else [c.diag])
+            row = dict(seed=seed, problem=name,
+                       coeffs_equal=(cg.names == cc.names and (cg.diag is None) == (cc.diag is None)
+                                     and all(g.cpu().equal(c) for g, c in
+                                             zip(fields(cg), fields(cc)))),
+                       x_true_equal=bool(xg.cpu().equal(xc)), b_equal=bool(bg.cpu().equal(bc)))
+            check(row["coeffs_equal"] and row["x_true_equal"],
+                  f"seed {seed} {name}: the card's draw is not the CPU's {row}")
+            rows.append(row)
+    return dict(phase="draw_check", runs=rows, b_equal_all=all(r["b_equal"] for r in rows))
+
+
+def phase8(torch, smi: str, phase4_ms: float) -> dict:
+    """8a at the default cell, 8b at the paper mesh, 8c the draw check."""
+    out: dict = {}
+    for label, path in SLICE_PATHS.items():
+        runs = [slice_semantics(torch, label, seed) for seed in range(PHASE3_SEEDS)]
+        signed = [r["iterations"] - r["spmd_iterations"] for r in runs]
+        gaps = (gap_check(f"{label} fused vs spmd", signed, EVERY_GAP, median=MEDIAN_GAP)
+                if path.gap_rule else dict(iteration_gaps=signed))
+        out[label] = dict(runs=runs, **gaps)
+        emit(dict(phase="slice_default", path=label, card=smi, **out[label]))
+    refine = []
+    for seed in range(PHASE3_SEEDS):
+        res, counts = run_cli_quiet(["--refine", "--policy", "bf16_mixed", "--seed", str(seed)])
+        rels = res["refine_rel_residuals"]
+        refine.append(dict(seed=seed, trajectory=rels, max_err=res["max_err"], launches=counts))
+        check(all(a > b for a, b in zip(rels, rels[1:])) and rels[-1] < 1e-5,
+              f"--refine seed {seed}: trajectory {rels}")
+        check(not any(counts.values()), f"--refine seed {seed} launched kernels {counts}")
+    out["refine"] = refine
+    emit(dict(phase="slice_refine", card=smi, runs=refine))
+    out["batched"] = [slice_batched(torch, label, seed) for label, path in SLICE_PATHS.items()
+                      if path.batched for seed in range(PHASE3_SEEDS)]
+    emit(dict(phase="slice_batched", card=smi, runs=out["batched"]))
+    out["iteration_fn_first_step"] = iteration_fn_first_step(torch)
+    emit(dict(phase="slice_iteration_fn_first_step", **out["iteration_fn_first_step"]))
+    out["full_width"] = {}
+    for label in SLICE_PATHS:
+        out["full_width"][label] = slice_full_width(torch, label, smi)
+        emit(out["full_width"][label])
+    out["iteration_fn"] = time_iteration_fn(torch, smi, phase4_ms)
+    emit(out["iteration_fn"])
+    out["draw_check"] = draw_check(torch)
+    emit(out["draw_check"])
+    return out
+
+
 def profile_window(torch, run) -> dict:
     """Device time by kernel over ``run()`` (torch.profiler, CUDA activity)
     and the card's idle share of the window; ``run`` once first, outside
@@ -838,27 +1388,42 @@ def profile_window(torch, run) -> dict:
 def profile_paths(torch, iters: int = PROFILE_ITERS) -> list[dict]:
     """A few ``bf16_mixed`` iterations of each measured path under the
     profiler: phase 4's solve at the paper mesh, phase 5's batched solve at
-    608^3 x 4, and phase 7's ``solve_ref_fused`` at the paper mesh."""
+    608^3 x 4, phase 7's ``solve_ref_fused`` at the paper mesh, and phase
+    8b's five paths at the paper mesh (the heterogeneous operator drawn on
+    the card here: the profile times the work, not a seed's system)."""
     from repro_torch.core import bicgstab, precision, stencil
+    from repro_torch.core.precond import PrecondConfig
     from repro_torch.launch.mesh import make_mesh_for_devices
 
     dev = torch.device("cuda")
     mesh = make_mesh_for_devices()
+    paths = [("paper_mesh", PAPER_MESH, 1, "bicgstab", "convdiff", "none"),
+             ("batched", JOULE_MESH, MAIN_NRHS, "bicgstab", "convdiff", "none"),
+             ("ref_fused", PAPER_MESH, 1, None, "convdiff", "none")]
+    for label, p in SLICE_PATHS.items():
+        paths.append((label, PAPER_MESH, 1, p.solver, p.problem, p.precond))
     out = []
-    for path, shape, nrhs in (("paper_mesh", PAPER_MESH, 1), ("batched", JOULE_MESH, MAIN_NRHS),
-                              ("ref_fused", PAPER_MESH, 1)):
+    for path, shape, nrhs, solver, problem, precond in paths:
         torch.cuda.empty_cache()
-        cf = stencil.convection_diffusion(shape, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        if problem == "convdiff":
+            cf = stencil.convection_diffusion(shape, device=dev)
+        elif problem == "poisson":
+            cf = stencil.poisson(shape, device=dev)
+        else:
+            cf = stencil.heterogeneous_poisson(gen, shape)
         xshape = (nrhs,) + shape if nrhs > 1 else shape
-        x = torch.randn(xshape, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+        x = torch.randn(xshape, generator=gen, device=dev)
         b = stencil.rhs_for_solution(cf, x).to(torch.bfloat16)
         cf = cf.astype(torch.bfloat16)
         del x
-        if path == "ref_fused":
+        if solver is None:
             run = lambda: bicgstab.solve_ref_fused(cf, b, tol=0.0, maxiter=iters)
         else:
+            pc = PrecondConfig(name=precond, degree=CHEB_DEGREE)
             run = lambda: bicgstab.solve_distributed(mesh, cf, b, tol=0.0, maxiter=iters,
-                                                     policy=precision.MIXED, backend="fused")
+                                                     policy=precision.MIXED, backend="fused",
+                                                     solver=solver, precond=pc)
         out.append(dict(phase="profile", path=path, shape=list(shape), nrhs=nrhs,
                         iterations=iters, **profile_window(torch, run)))
         del cf, b, run
@@ -938,9 +1503,10 @@ def main(argv=None) -> int:
                 library_ms=flat[k]["library_ms"]) for k, v in EARLIER_MS.items()}))
 
     # -- phase 3: convergence at the CLI's default problem, f32 ---------------
-    # One seed's count moves by up to 2 with the dots' summation order alone
-    # (the residual tail is spiky near tol 1e-6), so five seeds are compared,
-    # and the same solves with spmd-order dots must match spmd exactly.
+    # One seed's count moves with the dots' summation order alone (the
+    # residual tail is spiky near tol 1e-6), so each seed's gap is held
+    # within SEED_GAP and the five seeds' mean within MEAN_GAP, and the same
+    # solves with spmd-order dots must match spmd exactly.
     runs = []
     for seed in range(PHASE3_SEEDS):
         fused, counts3 = run_cli(["--backend", "fused", "--policy", "f32", "--seed", str(seed)])
@@ -956,13 +1522,11 @@ def main(argv=None) -> int:
               f"seed {seed}: f32 fused true rel-residual {fused['true_rel_residual']:.3e}")
         check(counts3 == expected_counts(fused["iterations"]),
               f"seed {seed}: launch counts {counts3} != {expected_counts(fused['iterations'])}")
-    gaps = sorted(abs(r["fused_iterations"] - r["spmd_iterations"]) for r in runs)
+    gaps = gap_check("fused vs spmd", [r["fused_iterations"] - r["spmd_iterations"]
+                                       for r in runs], SEED_GAP, mean=MEAN_GAP)
     matched = [dot_order_matched(torch, seed) for seed in range(PHASE3_SEEDS)]
-    record["convergence_f32"] = dict(runs=runs, iteration_gaps=gaps,
-                                     spmd_order_dots=matched)
+    record["convergence_f32"] = dict(runs=runs, **gaps, spmd_order_dots=matched)
     emit(dict(phase="convergence_f32", **record["convergence_f32"]))
-    check(gaps[len(gaps) // 2] <= 1 and gaps[-1] <= 2,
-          f"fused vs spmd iteration gaps {gaps}: median must be <= 1, max <= 2")
 
     # -- phase 4: the paper's mesh, bf16_mixed, through the kernels -----------
     torch.cuda.empty_cache()
@@ -1019,14 +1583,17 @@ def main(argv=None) -> int:
     # -- phase 7: solve_ref_fused ------------------------------------------------
     ref_default = [ref_fused_default(torch, r["seed"], r["spmd_iterations"], r["fused_iterations"])
                    for r in runs]
-    ref_gaps = sorted(abs(r["iterations"] - r["spmd_iterations"]) for r in ref_default)
-    emit(dict(phase="ref_fused_default", runs=ref_default, iteration_gaps=ref_gaps))
-    check(ref_gaps[len(ref_gaps) // 2] <= 1 and ref_gaps[-1] <= 2,
-          f"solve_ref_fused vs spmd iteration gaps {ref_gaps}: median must be <= 1, max <= 2")
+    ref_gaps = gap_check("solve_ref_fused vs spmd", [r["iterations"] - r["spmd_iterations"]
+                                                     for r in ref_default], SEED_GAP,
+                         mean=MEAN_GAP)
+    emit(dict(phase="ref_fused_default", runs=ref_default, **ref_gaps))
     torch.cuda.empty_cache()
     res7, counts7 = ref_fused_paper_mesh(torch)
     emit(res7)
     record["ref_fused"] = dict(default=ref_default, paper_mesh=res7)
+
+    # -- phase 8: the solver and preconditioner stack --------------------------
+    record["slice"] = phase8(torch, smi, record["paper_mesh"]["ms_per_iter"])
 
     # -- the kernels line ------------------------------------------------------
     path_counts = {"paper_mesh": counts, "batched": counts5, "ref_fused": counts7}
@@ -1042,6 +1609,7 @@ def main(argv=None) -> int:
     record["kernels"] = kernels
     record["failures"] = failures
     record["seconds"] = time.perf_counter() - t_start
+    emit(dict(phase="clock", seconds=record["seconds"], failures=len(failures)))
     out = ROOT / args.out
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1))

@@ -7,6 +7,9 @@ Counterpart of ``repro/core/bicgstab.py``:
 * :func:`solve_distributed`: the paper's run, every rank executing the whole
   Krylov iteration on its block.  This slice runs it on the one-rank fabric;
   a mesh with more ranks raises until the ``torch.distributed`` slice lands;
+* :func:`make_iteration_fn`: one BiCGStab iteration as a plain function
+  (the unit the paper measures);
+* :func:`solve_refined`: 16-bit inner solves with f32 iterative refinement;
 * :func:`solve_ref_fused`: one block through the 7-point SpMV+dot epilogue
   kernels and the fused update passes (the per-chip reference schedule).
 
@@ -20,13 +23,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.comm import get_schedule
-from repro_torch.core.halo import FabricAxes
+from repro_torch.core.halo import FabricAxes, global_apply
 from repro_torch.core.operator import make_operator
 from repro_torch.core.precision import F32, MIXED, Policy
 from repro_torch.core.precond import PrecondConfig, build_precond, get_precond_config
 from repro_torch.core.solvers import get_solver
-from repro_torch.core.solvers.common import SolveResult
-from repro_torch.core.stencil import StencilCoeffs
+from repro_torch.core.solvers.bicgstab import bicgstab_fused_step, bicgstab_step
+from repro_torch.core.solvers.common import EPS, SolveResult, axpy_family
+from repro_torch.core.stencil import StencilCoeffs, apply_ref
 
 
 def _check_rhs(coeffs: StencilCoeffs, b: torch.Tensor) -> None:
@@ -48,6 +52,11 @@ def solve_ref(coeffs: StencilCoeffs, b: torch.Tensor, x0: torch.Tensor | None = 
     M = build_precond(get_precond_config(precond), op)
     return get_solver(solver)(op, b, x0, tol=tol, maxiter=maxiter, policy=policy,
                               record_history=record_history, precond=M)
+
+
+def cg_ref(coeffs: StencilCoeffs, b: torch.Tensor, **kw) -> SolveResult:
+    """CG through :func:`solve_ref` (``x0`` is ignored, as in the JAX package)."""
+    return solve_ref(coeffs, b, solver="cg", **{k: v for k, v in kw.items() if k != "x0"})
 
 
 def solve_distributed(mesh, coeffs: StencilCoeffs, b: torch.Tensor,
@@ -77,6 +86,74 @@ def solve_distributed(mesh, coeffs: StencilCoeffs, b: torch.Tensor,
     M = build_precond(get_precond_config(precond), op)
     return get_solver(solver)(op, b, x0, tol=tol, maxiter=maxiter, policy=policy,
                               record_history=record_history, precond=M)
+
+
+def make_iteration_fn(mesh, *, policy: Policy = MIXED, fused_reductions: bool = True,
+                      schedule: str | None = None, backend: str = "spmd"):
+    """One BiCGStab iteration as a plain function on the rank mesh:
+    ``(coeffs, x, r, p, r0, rho) -> (x, r, p, rho, res2)``.
+
+    The unit the paper measures: 2 SpMVs, the AXPYs, the dots and 3 sync
+    points (5 with ``fused_reductions=False``).  With ``backend="fused"``
+    the body is the fused-kernel dataflow of the solver's loop (2 stencil
+    kernels, ``dot_mixed``, the three fused passes, 3 ``reduce_partials``);
+    otherwise it is the generic loop's body over ``op.apply``/``op.dots``.
+    A mesh of more than one rank raises until the ``torch.distributed``
+    slice lands.
+    """
+    sched = get_schedule(schedule)
+    fabric = FabricAxes.from_mesh(mesh)
+    if fabric.size > 1:
+        raise NotImplementedError("multi-rank iteration (torch.distributed): next slice")
+
+    def iteration(coeffs, x, r, p, r0, rho):
+        op = make_operator(backend, coeffs, fabric, policy=policy, schedule=sched,
+                           fused_reductions=fused_reductions)
+        if op.fused is not None:
+            out = bicgstab_fused_step(op, policy, x, r, p, r0, rho)
+        else:
+            out = bicgstab_step(op.apply, op.dots, policy, *axpy_family(policy),
+                                x, r, p, r0, rho)
+        return out[:5]
+
+    return iteration
+
+
+def solve_refined(coeffs: StencilCoeffs, b: torch.Tensor, *, mesh=None, outer_iters: int = 4,
+                  inner_maxiter: int = 60, inner_tol: float = 1e-3,
+                  inner_policy: Policy = MIXED) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32-accurate solutions from a 16-bit inner solver (iterative refinement).
+
+    Residuals and the solution accumulate in f32; each correction solve runs
+    in ``inner_policy``, through :func:`solve_ref` (reference backend) or,
+    with a ``mesh``, :func:`solve_distributed` (spmd backend).  Returns the
+    f32 solution and the relative true residual before each outer step and
+    after the last (``outer_iters + 1`` values).
+    """
+    cf32 = coeffs.astype(torch.float32)
+
+    def inner(rhs):
+        if mesh is None:
+            return solve_ref(coeffs, rhs, tol=inner_tol, maxiter=inner_maxiter,
+                             policy=inner_policy)
+        return solve_distributed(mesh, coeffs, rhs, tol=inner_tol, maxiter=inner_maxiter,
+                                 policy=inner_policy)
+
+    if mesh is None:
+        apply32 = lambda v: apply_ref(cf32, v, policy=F32)
+    else:
+        apply32 = lambda v: global_apply(mesh, cf32, v, policy=F32)
+
+    b32 = b.to(torch.float32)
+    x = torch.zeros_like(b32)
+    bnorm = torch.clamp(torch.linalg.vector_norm(b32), min=EPS)
+    rels = []
+    for _ in range(outer_iters):
+        r = b32 - apply32(x)
+        rels.append(torch.linalg.vector_norm(r) / bnorm)
+        x = x + inner(r.to(inner_policy.storage)).x.to(torch.float32)
+    rels.append(torch.linalg.vector_norm(b32 - apply32(x)) / bnorm)
+    return x, torch.stack(rels)
 
 
 def solve_ref_fused(coeffs: StencilCoeffs, b: torch.Tensor, *, tol: float = 1e-6,

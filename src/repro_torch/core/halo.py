@@ -121,3 +121,14 @@ def local_apply(coeffs: StencilCoeffs, v: torch.Tensor, fabric: FabricAxes, *,
 
     return scheduled_apply(coeffs, v, fabric, policy=policy,
                            schedule=get_schedule(schedule))
+
+
+def global_apply(mesh, coeffs: StencilCoeffs, v: torch.Tensor, *, policy: Policy = F32,
+                 schedule=None) -> torch.Tensor:
+    """One SpMV on global arrays over the rank mesh.  On the one-rank
+    fabric the global array is the local block; a mesh of more ranks raises
+    until the ``torch.distributed`` slice lands."""
+    fabric = FabricAxes.from_mesh(mesh)
+    if fabric.size > 1:
+        raise NotImplementedError("multi-rank global apply (torch.distributed): next slice")
+    return local_apply(coeffs, v, fabric, policy=policy, schedule=schedule)

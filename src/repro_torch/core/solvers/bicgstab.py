@@ -32,6 +32,54 @@ from repro_torch.core.solvers.common import (
 )
 
 
+def bicgstab_step(apply_A: Callable, dots: Callable, policy: Policy, axpy, axpy2,
+                  x, r, p, r0, rho):
+    """One iteration of the generic algorithm: ``(x, r, p, rho, res2, brk)``
+    from ``(x, r, p)``, the shadow residual ``r0`` and ``rho = <r0, r>``."""
+    s = apply_A(p)
+    (r0s,) = dots([(r0, s)], policy)
+    alpha, bad1 = safe_div(rho, r0s)
+    q = axpy(-alpha, s, r)
+    y = apply_A(q)
+    qy, yy = dots([(q, y), (y, y)], policy)
+    omega, bad2 = safe_div(qy, yy)
+    x = axpy2(alpha, p, omega, q, x)
+    r_new = axpy(-omega, y, q)
+    rho_new, res2_new = dots([(r0, r_new), (r_new, r_new)], policy)
+    beta_frac, bad3 = safe_div(rho_new, rho)
+    alpha_frac, bad4 = safe_div(alpha, omega)
+    p = axpy(beta_frac * alpha_frac, axpy(-omega, s, p), r_new)
+    return x, r_new, p, rho_new, res2_new, bad1 | bad2 | bad3 | bad4
+
+
+def bicgstab_fused_step(op, policy: Policy, x, r, p, r0, rho):
+    """One iteration through the operator's fused kernels, with the same
+    inputs and outputs as :func:`bicgstab_step`.
+
+    ``update_q_dots`` recomputes ``q = r - alpha*s`` in the pass that forms
+    the <q,y>/<y,y> partials: the SpMV needs q before y exists, so q is first
+    formed by plain tensor ops as the SpMV input (same arithmetic, so the
+    same bits as the kernel's q) and the kernel fuses the recompute with both
+    dot partials instead of re-reading q.
+    """
+    f, st = op.fused, policy.storage
+    s = op.apply(p)
+    (r0s,) = op.reduce_partials([f.dot_partial(r0, s)])     # sync point 1
+    alpha, bad1 = safe_div(rho, r0s)
+    q_in = r - bcast_scalar(alpha.to(st), s) * s             # SpMV input, kernel-identical
+    y = op.apply(q_in)
+    del q_in
+    q, qy, yy = f.update_q_dots(alpha, r, s, y)
+    qy, yy = op.reduce_partials([qy, yy])                   # sync point 2
+    omega, bad2 = safe_div(qy, yy)
+    x, r_new, r0r, rr = f.update_xr_dots(alpha, omega, x, p, q, y, r0)
+    rho_new, res2_new = op.reduce_partials([r0r, rr])       # sync point 3
+    beta_frac, bad3 = safe_div(rho_new, rho)
+    alpha_frac, bad4 = safe_div(alpha, omega)
+    p = f.update_p(beta_frac * alpha_frac, omega, r_new, p, s)
+    return x, r_new, p, rho_new, res2_new, bad1 | bad2 | bad3 | bad4
+
+
 def bicgstab_loop(apply_A: Callable, dots: Callable, b, x0, *, tol: float = 1e-6,
                   maxiter: int = 200, policy: Policy = F32, record_history: bool = False,
                   axpy=None, axpy2=None) -> SolveResult:
@@ -53,23 +101,9 @@ def bicgstab_loop(apply_A: Callable, dots: Callable, b, x0, *, tol: float = 1e-6
 
     def step(carry):
         i, x, r, p, rho, res2, conv, brk = carry
-        s = apply_A(p)
-        (r0s,) = dots([(r0, s)], policy)
-        alpha, bad1 = safe_div(rho, r0s)
-        q = axpy(-alpha, s, r)
-        y = apply_A(q)
-        qy, yy = dots([(q, y), (y, y)], policy)
-        omega, bad2 = safe_div(qy, yy)
-        x = axpy2(alpha, p, omega, q, x)
-        r_new = axpy(-omega, y, q)
-        rho_new, res2_new = dots([(r0, r_new), (r_new, r_new)], policy)
-        beta_frac, bad3 = safe_div(rho_new, rho)
-        alpha_frac, bad4 = safe_div(alpha, omega)
-        beta = beta_frac * alpha_frac
-        p = axpy(beta, axpy(-omega, s, p), r_new)
-        conv = converged(res2_new)
-        brk = bad1 | bad2 | bad3 | bad4
-        return i + 1, x, r_new, p, rho_new, res2_new, conv, brk
+        x, r, p, rho, res2, brk = bicgstab_step(apply_A, dots, policy, axpy, axpy2,
+                                                x, r, p, r0, rho)
+        return i + 1, x, r, p, rho, res2, converged(res2), brk
 
     conv0 = converged(rho0)
     i0, brk0 = init_counters(conv0)
@@ -81,14 +115,8 @@ def bicgstab_loop(apply_A: Callable, dots: Callable, b, x0, *, tol: float = 1e-6
 
 def bicgstab_fused_loop(op, b, x0, *, tol: float = 1e-6, maxiter: int = 200,
                         policy: Policy = F32, record_history: bool = False) -> SolveResult:
-    """BiCGStab through the operator's fused kernels (``op.fused``).
-
-    ``update_q_dots`` recomputes ``q = r - alpha*s`` in the pass that forms
-    the <q,y>/<y,y> partials: the SpMV needs q before y exists, so q is first
-    formed by plain tensor ops as the SpMV input (same arithmetic, so the
-    same bits as the kernel's q) and the kernel fuses the recompute with both
-    dot partials instead of re-reading q.
-    """
+    """BiCGStab through the operator's fused kernels (``op.fused``), one
+    :func:`bicgstab_fused_step` per iteration."""
     f = op.fused
     if f is None:
         raise ValueError("operator has no fused kernels (use bicgstab_loop)")
@@ -107,23 +135,8 @@ def bicgstab_fused_loop(op, b, x0, *, tol: float = 1e-6, maxiter: int = 200,
 
     def step(carry):
         i, x, r, p, rho, res2, conv, brk = carry
-        s = op.apply(p)
-        (r0s,) = op.reduce_partials([f.dot_partial(r0, s)])     # sync point 1
-        alpha, bad1 = safe_div(rho, r0s)
-        q_in = r - bcast_scalar(alpha.to(st), s) * s             # SpMV input, kernel-identical
-        y = op.apply(q_in)
-        del q_in
-        q, qy, yy = f.update_q_dots(alpha, r, s, y)
-        qy, yy = op.reduce_partials([qy, yy])                   # sync point 2
-        omega, bad2 = safe_div(qy, yy)
-        x, r_new, r0r, rr = f.update_xr_dots(alpha, omega, x, p, q, y, r0)
-        rho_new, res2_new = op.reduce_partials([r0r, rr])       # sync point 3
-        beta_frac, bad3 = safe_div(rho_new, rho)
-        alpha_frac, bad4 = safe_div(alpha, omega)
-        p = f.update_p(beta_frac * alpha_frac, omega, r_new, p, s)
-        conv = converged(res2_new)
-        brk = bad1 | bad2 | bad3 | bad4
-        return i + 1, x, r_new, p, rho_new, res2_new, conv, brk
+        x, r, p, rho, res2, brk = bicgstab_fused_step(op, policy, x, r, p, r0, rho)
+        return i + 1, x, r, p, rho, res2, converged(res2), brk
 
     conv0 = converged(rho0)
     i0, brk0 = init_counters(conv0)

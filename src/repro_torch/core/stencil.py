@@ -194,6 +194,12 @@ class StencilCoeffs:
             {k: v.to(dtype) for k, v in self.diags.items()},
             diag=None if self.diag is None else self.diag.to(dtype))
 
+    def to(self, device: str | torch.device) -> "StencilCoeffs":
+        """The same fields on ``device``, bits unchanged."""
+        return StencilCoeffs(
+            {k: v.to(device) for k, v in self.diags.items()},
+            diag=None if self.diag is None else self.diag.to(device))
+
 
 def _shift(v: torch.Tensor, axis: int, offset: int) -> torch.Tensor:
     """v shifted so result[i] = v[i + offset] along ``axis``; zero fill."""

@@ -7,6 +7,7 @@ torch = pytest.importorskip("torch")
 
 from _torch_port import run_module  # noqa: E402
 from repro_torch.core import bicgstab, precision, stencil  # noqa: E402
+from repro_torch.core.precond import PrecondConfig  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.launch import solve  # noqa: E402
@@ -85,3 +86,102 @@ def test_resolve_device():
 
 def test_default_mesh_is_one_rank():
     assert make_mesh_for_devices().shape == {"data": 1, "model": 1}
+
+
+CPU_F32 = ["--device", "cpu", "--backend", "fused", "--mesh", "8", "8", "8", "--policy", "f32"]
+
+
+@pytest.mark.parametrize("solver,problem", [("cg", "poisson"), ("pipelined_cg", "poisson"),
+                                            ("pipelined_bicgstab", "convdiff")])
+def test_cli_solver_picks_its_default_problem(solver, problem, capsys):
+    """CG wants a symmetric operator: ``--solver cg``/``pipelined_cg`` default
+    to poisson, the BiCGStab forms keep convdiff for star7."""
+    res = solve.main(CPU_F32 + ["--solver", solver, "--tol", "1e-5"])
+    assert (res["problem"], res["solver"]) == (problem, solver)
+    assert res["converged"] and res["true_rel_residual"] < 1e-4
+    assert f"solver={solver}" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("extra", [
+    ["--precond", "chebyshev", "--problem", "poisson", "--cheb-degree", "4"],
+    ["--precond", "jacobi", "--problem", "heterogeneous", "--maxiter", "2000"],
+    ["--solver", "pipelined_bicgstab", "--precond", "jacobi", "--problem", "heterogeneous"],
+    ["--solver", "cg", "--nrhs", "2"],
+    ["--solver", "pipelined_bicgstab", "--nrhs", "2", "--precond", "chebyshev"],
+], ids=["chebyshev", "jacobi", "pipelined_jacobi", "cg_nrhs", "pipelined_nrhs_chebyshev"])
+def test_cli_cpu_paths_converge(extra):
+    res = solve.main(CPU_F32 + extra)
+    conv, true = res["converged"], res["true_rel_residual"]
+    if isinstance(conv, list):
+        conv, true = all(conv), max(true)
+    assert conv and true < 1e-5, res
+
+
+def test_cheb_degree_reaches_the_config(monkeypatch):
+    seen = {}
+    real = bicgstab.solve_distributed
+
+    def spy(*args, **kw):
+        seen.update(kw)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(bicgstab, "solve_distributed", spy)
+    solve.main(CPU_F32 + ["--precond", "chebyshev", "--cheb-degree", "5", "--maxiter", "3"])
+    assert seen["precond"] == PrecondConfig(name="chebyshev", degree=5)
+
+
+@pytest.mark.parametrize("extra,msg", [
+    (["--nrhs", "2"], "single-RHS"),
+    (["--solver", "cg"], "does not honor"),
+    (["--backend", "fused"], "does not honor"),
+    (["--precond", "jacobi"], "does not honor"),
+])
+def test_refine_refuses_what_it_does_not_honor(extra, msg):
+    with pytest.raises(SystemExit, match=msg):
+        solve.main(["--device", "cpu", "--refine", *extra])
+
+
+def test_refine_on_cpu(capsys):
+    """``--refine`` (bf16_mixed inner solves by default): the printed true-
+    residual trajectory falls at every outer step to below 1e-5."""
+    res = solve.main(["--device", "cpu", "--refine", "--mesh", "8", "8", "8"])
+    rels = res["refine_rel_residuals"]
+    assert len(rels) == 5 and all(a > b for a, b in zip(rels, rels[1:])) and rels[-1] < 1e-5
+    assert res["max_err"] < 1e-3
+    printed = capsys.readouterr().out
+    assert "refinement true-residual trajectory:" in printed
+    assert "max err vs manufactured solution" in printed
+
+
+@pytest.mark.parametrize("problem", ["heterogeneous", "random", "convdiff"])
+def test_manufactured_system_draws_on_the_host(monkeypatch, problem):
+    """Whatever the target device, the system and x_true come from CPU
+    generators (one stream per seed on every device) and land on the
+    target; ``meta`` stands in for a card here."""
+    made = []
+    real = torch.Generator
+
+    class TorchSpy:
+        """The torch module as the CLI's module sees it, recording each generator."""
+
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+        def Generator(self, *args, **kw):  # noqa: N802
+            gen = real(*args, **kw)
+            made.append(gen.device)
+            return gen
+
+    monkeypatch.setattr(solve, "torch", TorchSpy())
+    meta = torch.device("meta")
+    _, cf, b = solve.manufactured_system(problem, stencil.STAR7, (4, 5, 6), seed=3,
+                                         device=meta, nrhs=2)
+    assert len(made) == 2 and all(d.type == "cpu" for d in made)
+    assert b.device == meta and b.shape == (2, 4, 5, 6)
+    assert all(t.device == meta for t in cf.diags.values())
+    _, cpu_cf, cpu_b = solve.manufactured_system(problem, stencil.STAR7, (4, 5, 6), seed=3,
+                                                 device=torch.device("cpu"), nrhs=2)
+    want = torch.randn((2, 4, 5, 6), generator=real().manual_seed(4))
+    assert torch.equal(solve.manufactured_solution((4, 5, 6), seed=3, device="cpu", nrhs=2),
+                       want)
+    assert torch.equal(cpu_b, stencil.rhs_for_solution(cpu_cf, want))
