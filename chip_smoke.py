@@ -104,6 +104,30 @@ Phases (one line of output each, JSON where it carries numbers):
    draws the same coefficients and x_true for the card as for the CPU, bit
    for bit (whether b is equal is recorded).
 
+9. observability, the tuning cache and the performance model, all written
+   into a temporary directory (``REPRO_TORCH_TUNING_CACHE`` and
+   ``--run-dir`` point there).  (a) ``tuning.autotune_cell`` sweeps the
+   stencil kernel's plans at ``cs1_paper`` (608x608x1536, bf16) and at
+   ``joule_600`` x 4 (608^3, 4 RHS, where the RHS chunk matters) on the
+   solve's own one-rank fabric, where every candidate runs what the solve
+   runs (one pad and one K1/K1b): every candidate's output equals the
+   default's bit for bit on the sweep's inputs; one line per candidate
+   gives its CUDA-event ms, the bytes bound at 3.35 TB/s, its share of it,
+   and the card.  On a synthetic 2x2 exchange every swept plan's fused and
+   split ring forms equal each other and the default's split form, bit for
+   bit.  Then the CLI with ``--autotune`` at
+   ``cs1_paper`` (30 iterations, tol 0) must find the sweep's entry (a cache
+   hit) and give phase 4's residuals bit for bit and its launch counts.
+   (b) ``--obs --run-dir``: the manifest passes ``validate_manifest`` and
+   names the card and its power limit, ``events.jsonl`` holds one solve
+   event of 30 iterations and a ``collectives`` event of 91 AllReduces
+   (1 + 3 x 30) and 0 ppermutes, ``trace.json`` holds the solve, operator
+   and halo spans, and residuals and launch counts equal phase 4's; its
+   ms/iter is recorded beside phase 4's.  (c) ``--profile`` for 5
+   iterations: ``<run_dir>/torch_profile`` holds a trace with the stencil
+   kernel's device events.  (d) ``perfmodel.iteration_time_model`` for
+   ``cs1_paper`` on one card beside phase 4's ms/iter and the bytes bound.
+
 ``--profile`` adds a torch.profiler trace of a few iterations of each
 measured path (phases 4, 5, 7 and 8b): device time by kernel and the card's
 idle share.
@@ -1361,6 +1385,184 @@ def phase8(torch, smi: str, phase4_ms: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the tuning cache, observability and the performance model
+# ---------------------------------------------------------------------------
+
+#: 9a's sweeps: (label, block, right-hand sides)
+SWEEP_CELLS = (("cs1_paper", PAPER_MESH, 1), ("joule_600", JOULE_MESH, MAIN_NRHS))
+#: the spans 9b's trace.json must hold
+OBS_SPANS = {"solve.krylov", "operator.build", "comm.halo.issue", "comm.halo.interior",
+             "comm.halo.ring"}
+STENCIL_KERNEL = "stencil_nd_kernel"
+
+
+def sweep_cell(torch, label: str, shape, nrhs: int) -> dict:
+    """9a: sweep one cell into the active cache; one line per candidate."""
+    from repro_torch.core import stencil, tuning
+
+    torch.cuda.empty_cache()
+    try:
+        rec = tuning.autotune_cell(stencil.STAR7, torch.bfloat16, shape, nrhs=nrhs,
+                                   device="cuda")
+    except RuntimeError as e:        # a candidate changed a bit
+        check(False, f"9a {label}: {e}")
+        return dict(cell=label, error=str(e))
+    torch.cuda.empty_cache()
+    rows = [dict(config=r["config"], ms=r["seconds"] * 1e3, bound_ms=rec["bound_s"] * 1e3,
+                 bound_share=r["bound_share"], bitwise_default=r["bitwise_default"])
+            for r in rec["swept"]]
+    for row in rows:
+        c = row["config"]
+        emit(f"9a {label} x{nrhs}: seg_len {c['seg_len']:4d} chunk {c['chunk']} "
+             f"fuse_ring {c['fuse_ring']!s:5}: {row['ms']:.3f} ms, bound {row['bound_ms']:.3f} "
+             f"ms, {row['bound_share']:.1%} of it; {rec['card']}")
+    check(not rec["cache_hit"] and rec["fabric"] == [1, 1, 1]
+          and all(r["bitwise_default"] and not r["config"]["fuse_ring"] for r in rows),
+          f"9a {label}: the sweep did not hold every plan to the default on one rank")
+    ring = ring_forms_agree(torch, shape, nrhs, [r["config"] for r in rows])
+    return dict(cell=label, key=rec["key"], card=rec["card"], nrhs=nrhs, shape=list(shape),
+                winner=rec["config"], default=rec["default_config"],
+                speedup_vs_default=rec["speedup_vs_default"], bound_ms=rec["bound_s"] * 1e3,
+                ring_forms_bitwise=ring, rows=rows)
+
+
+def ring_forms_agree(torch, shape, nrhs: int, configs: list[dict]) -> bool:
+    """9a: on a synthetic 2x2 exchange, each plan's fused ring form and its
+    split form (kernel on the zero-padded block, then four slab patches)
+    equal the default's split form bit for bit."""
+    import dataclasses
+
+    from repro_torch.core import stencil, tuning
+
+    spec = stencil.STAR7
+    problem = tuning.cell_problem(spec, torch.bfloat16, shape, nrhs=nrhs, device="cuda",
+                                  fabric=tuning.RING_FABRIC)
+    want = tuning.config_apply(problem, spec, tuning.KernelConfig.from_json(configs[0]))
+    ok = True
+    for c in configs:
+        cfg = tuning.KernelConfig.from_json(c)
+        for fuse in (False, True):
+            got = tuning.config_apply(problem, spec, dataclasses.replace(cfg, fuse_ring=fuse))
+            ok = ok and torch.equal(got.view(torch.int16), want.view(torch.int16))
+            del got
+    del problem, want
+    torch.cuda.empty_cache()
+    check(ok, f"9a {shape} x{nrhs}: a plan's fused and split ring forms differ on the 2x2 "
+              f"exchange")
+    return ok
+
+
+def same_run(label: str, res: dict, counts: dict, phase4: dict) -> None:
+    """The residuals and launch counts of a phase-9 CLI run equal phase 4's."""
+    for k in ("iterations", "rel_residual", "true_rel_residual"):
+        check(res[k] == phase4[k], f"{label}: {k} {res[k]!r} != phase 4's {phase4[k]!r}")
+    check(counts == phase4["launches"],
+          f"{label}: launch counts {counts} != phase 4's {phase4['launches']}")
+
+
+def read_jsonl(path: Path) -> list[dict]:
+    return [json.loads(line) for line in path.read_text().splitlines() if line.strip()]
+
+
+def phase9(torch, smi: str, phase4: dict) -> dict:
+    """9a the sweep and the ``--autotune`` solve, 9b the ``--obs`` bundle,
+    9c the ``--profile`` trace, 9d the model (module docstring)."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.core import perfmodel, tuning
+    from repro_torch.obs import manifest, trace
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_phase9_"))
+    mesh = ["--mesh", *(str(s) for s in PAPER_MESH), "--backend", "fused", "--policy",
+            "bf16_mixed", "--tol", "0", "--maxiter", str(MAIN_ITERS)]
+    out: dict = {}
+    try:
+        # -- 9a: the sweep, then the CLI on the swept entry ---------------------
+        os.environ[tuning.ENV_VAR] = str(tmp / "tuning_cache_torch.json")
+        out["sweeps"] = [sweep_cell(torch, *cell) for cell in SWEEP_CELLS]
+        emit(dict(phase="autotune_sweep", card=smi,
+                  cells=[{k: v for k, v in c.items() if k != "rows"} for c in out["sweeps"]]))
+        torch.cuda.empty_cache()
+        res, counts = run_cli(mesh + ["--autotune"])
+        hit = res.get("autotune", {}).get("cache_hit", False)
+        check(hit, "9a: the --autotune solve did not hit the sweep's cache entry")
+        same_run("9a --autotune", res, counts, phase4)
+        out["autotune_solve"] = dict(cache_hit=hit, config=res.get("autotune", {}).get("config"),
+                                     ms_per_iter=res["ms_per_iter"],
+                                     rel_residual=res["rel_residual"], launches=counts)
+        emit(dict(phase="autotune_solve", card=smi, phase4_ms_per_iter=phase4["ms_per_iter"],
+                  **out["autotune_solve"]))
+
+        # -- 9b: the --obs bundle, on phase 4's plan -----------------------------
+        os.environ[tuning.ENV_VAR] = "off"
+        torch.cuda.empty_cache()
+        run_dir = tmp / "obs"
+        res, counts = run_cli(mesh + ["--obs", "--run-dir", str(run_dir)])
+        man = manifest.load_manifest(str(run_dir))
+        problems = manifest.validate_manifest(man)
+        dev = man["devices"]
+        check(not problems, f"9b: manifest problems {problems}")
+        check(torch.cuda.get_device_name(0) in dev["kinds"] and dev["power_limit"]
+              and smi in (dev["nvidia_smi"] or []), f"9b: manifest devices {dev}")
+        events = read_jsonl(run_dir / "events.jsonl")
+        solves = [e for e in events if e["event"] == "solve"]
+        colls = [e for e in events if e["event"] == "collectives"]
+        check(len(solves) == 1 and solves[0]["iterations"] == [MAIN_ITERS],
+              f"9b: solve events {solves}")
+        check(len(colls) == 1 and colls[0]["allreduce_total"] == 1 + 3 * MAIN_ITERS
+              and colls[0]["ppermute_total"] == 0, f"9b: collectives events {colls}")
+        spans = {e["name"] for e in json.loads((run_dir / "trace.json").read_text())[
+            "traceEvents"]}
+        check(OBS_SPANS <= spans, f"9b: trace.json lacks spans {sorted(OBS_SPANS - spans)}")
+        same_run("9b --obs", res, counts, phase4)
+        out["obs"] = dict(ms_per_iter=res["ms_per_iter"], phase4_ms_per_iter=phase4["ms_per_iter"],
+                          collectives=colls[0] if colls else None, spans=sorted(spans),
+                          devices=dev, manifest_problems=problems,
+                          launch_gauges={k: v for k, v in man["metrics"]["gauges"].items()
+                                         if k.startswith("kernels.") and v})
+        emit(dict(phase="obs_bundle", card=smi, **out["obs"]))
+
+        # -- 9c: the --profile trace ---------------------------------------------
+        torch.cuda.empty_cache()
+        run_dir = tmp / "profile"
+        try:
+            res, counts = run_cli(mesh[:-1] + [str(PROFILE_ITERS), "--profile", "--run-dir",
+                                               str(run_dir)])
+        except RuntimeError as e:    # the profile recorded no device activity
+            check(False, f"9c: {e}")
+            return out
+        trace_file = run_dir / manifest.PROFILE_DIR / trace.PROFILE_TRACE
+        doc = json.loads(trace_file.read_text())
+        kernels = [e for e in doc.get("traceEvents", [])
+                   if str(e.get("cat", "")).lower() == "kernel"]
+        stencil_events = [e for e in kernels if STENCIL_KERNEL in e.get("name", "")]
+        check(len(stencil_events) >= 2 * PROFILE_ITERS,
+              f"9c: the profile holds {len(stencil_events)} stencil kernel events "
+              f"(of {len(kernels)} device kernels); want {2 * PROFILE_ITERS}")
+        out["profile"] = dict(iterations=PROFILE_ITERS, trace_bytes=trace_file.stat().st_size,
+                              device_kernel_events=len(kernels),
+                              stencil_kernel_events=len(stencil_events),
+                              stencil_kernel_us=sum(e.get("dur", 0) for e in stencil_events),
+                              launches=counts)
+        emit(dict(phase="profile_bundle", card=smi, **out["profile"]))
+    finally:
+        os.environ.pop(tuning.ENV_VAR, None)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- 9d: the model against the measurement -----------------------------------
+    model = perfmodel.iteration_time_model(PAPER_MESH, 1)
+    fused = perfmodel.iteration_time_model(PAPER_MESH, 1, fused_sweeps=True)
+    out["model"] = dict(model_ms=model["t_iter_s"] * 1e3, model_bound=model["bound"],
+                        model_fused_sweeps_ms=fused["t_iter_s"] * 1e3,
+                        bytes_bound_ms=iteration_bytes(PAPER_MESH, 2) / PEAK_BYTES_PER_S * 1e3,
+                        measured_ms=phase4["ms_per_iter"])
+    emit(dict(phase="perfmodel", card=smi, shape=list(PAPER_MESH), **out["model"]))
+    return out
+
+
 def profile_window(torch, run) -> dict:
     """Device time by kernel over ``run()`` (torch.profiler, CUDA activity)
     and the card's idle share of the window; ``run`` once first, outside
@@ -1594,6 +1796,9 @@ def main(argv=None) -> int:
 
     # -- phase 8: the solver and preconditioner stack --------------------------
     record["slice"] = phase8(torch, smi, record["paper_mesh"]["ms_per_iter"])
+
+    # -- phase 9: the tuning cache, observability and the performance model ----
+    record["phase9"] = phase9(torch, smi, record["paper_mesh"])
 
     # -- the kernels line ------------------------------------------------------
     path_counts = {"paper_mesh": counts, "batched": counts5, "ref_fused": counts7}

@@ -26,3 +26,13 @@ STENCIL_CELLS = {
     "joule_370": StencilCell("joule_370", (384, 384, 370), (370, 370, 370)),
     "smoke": StencilCell("smoke", (16, 16, 8), (16, 16, 8), policy="f32"),
 }
+
+
+def ops_per_meshpoint() -> dict:
+    """Paper Table I (mixed column): per iteration per meshpoint."""
+    return {
+        "matvec_hp_add": 12, "matvec_hp_mul": 12,
+        "dot_hp_mul": 4, "dot_sp_add": 4,
+        "axpy_hp_add": 6, "axpy_hp_mul": 6,
+        "total": 44,
+    }

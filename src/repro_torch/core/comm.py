@@ -12,6 +12,11 @@ Counterpart of ``repro/core/comm.py``.
 On the one-rank fabric there is no boundary ring (:func:`boundary_regions`
 is empty), so both schedules reach the same kernel on the zero-padded
 block; both code paths stay for the multi-rank slice.
+
+Observability, at the JAX package's sites: spans ``comm.halo.issue``,
+``.blocking``, ``.fused_epilogue``, ``.interior`` and ``.ring``, and the
+``comm.halo_exchanges`` counter.  In eager PyTorch they fire on every SpMV
+(the JAX package's fire once per trace), and their time is the host's.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import torch
 from repro_torch.core.halo import FabricAxes, gather_halo, interior_apply, padded_apply
 from repro_torch.core.precision import F32, Policy
 from repro_torch.core.stencil import StencilCoeffs
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +70,9 @@ class HaloExchange:
     ``padded`` is the r-padded block with halos filled.  On the one-rank
     fabric nothing travels, so the block is built on its first read: the
     overlap schedule with no boundary ring never reads it, and eager PyTorch
-    (unlike XLA) would not drop an unread copy.
+    (unlike XLA) would not drop an unread copy.  ``filled`` hands in a block
+    whose halos are already in place (the tuning sweep's stand-in for a
+    neighbor's faces, ``core/tuning.py:synthetic_exchange``).
     """
 
     v: torch.Tensor
@@ -71,6 +80,7 @@ class HaloExchange:
     radius: int
     corners: bool = False
     n_batch: int = 0
+    filled: torch.Tensor | None = None
 
     @property
     def shape(self) -> tuple[int, ...]:
@@ -79,6 +89,8 @@ class HaloExchange:
 
     @functools.cached_property
     def padded(self) -> torch.Tensor:
+        if self.filled is not None:
+            return self.filled
         return gather_halo(self.v, self.fabric, self.radius,
                            corners=self.corners, n_batch=self.n_batch)
 
@@ -86,7 +98,9 @@ class HaloExchange:
 def start_halo_exchange(v: torch.Tensor, fabric: FabricAxes, radius: int, *,
                         corners: bool = False, n_batch: int = 0) -> HaloExchange:
     """Start the depth-r exchange and return its handle."""
-    return HaloExchange(v, fabric, radius, corners, n_batch)
+    obs_metrics.counter("comm.halo_exchanges").inc()
+    with obs_trace.span("comm.halo.issue", radius=radius, n_batch=n_batch):
+        return HaloExchange(v, fabric, radius, corners, n_batch)
 
 
 def boundary_regions(shape: tuple[int, ...], fabric: FabricAxes,
@@ -143,15 +157,21 @@ def scheduled_apply(coeffs: StencilCoeffs, v: torch.Tensor, fabric: FabricAxes, 
     sched = get_schedule(schedule)
 
     if not sched.overlap_halo:
-        vp = gather_halo(v, fabric, r, corners=spec.needs_corners, n_batch=nb)
-        if full_fn is not None:
-            return full_fn(vp)
-        return padded_apply(coeffs, vp, tuple(v.shape), policy=policy).to(policy.storage)
+        with obs_trace.span("comm.halo.blocking", stencil=spec.name):
+            obs_metrics.counter("comm.halo_exchanges").inc()
+            vp = gather_halo(v, fabric, r, corners=spec.needs_corners, n_batch=nb)
+            if full_fn is not None:
+                return full_fn(vp)
+            return padded_apply(coeffs, vp, tuple(v.shape), policy=policy).to(policy.storage)
 
     exchange = start_halo_exchange(v, fabric, r, corners=spec.needs_corners, n_batch=nb)
     if fused_fn is not None:
-        return fused_fn(exchange)
-    u = interior_apply(coeffs, v, policy=policy) if interior_fn is None else interior_fn(v)
-    if patch_fn is not None:
-        return patch_fn(exchange, u)
-    return boundary_ring_apply(coeffs, exchange, u, fabric, policy=policy).to(policy.storage)
+        with obs_trace.span("comm.halo.fused_epilogue", stencil=spec.name):
+            return fused_fn(exchange)
+    with obs_trace.span("comm.halo.interior", stencil=spec.name):
+        u = interior_apply(coeffs, v, policy=policy) if interior_fn is None else interior_fn(v)
+    with obs_trace.span("comm.halo.ring", stencil=spec.name):
+        if patch_fn is not None:
+            return patch_fn(exchange, u)
+        return boundary_ring_apply(coeffs, exchange, u, fabric,
+                                   policy=policy).to(policy.storage)

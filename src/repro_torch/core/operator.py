@@ -18,7 +18,12 @@ Backends (:data:`BACKENDS`):
   fused_iter kernels (the counterpart of the JAX package's ``pallas``).
 
 On the one-rank fabric every AllReduce is the identity; an axis split over
-more ranks raises until the ``torch.distributed`` slice lands.
+more ranks raises until the ``torch.distributed`` slice lands.  Each
+AllReduce the reductions make (one per sync point, or one per dot in the
+paper's separate schedule, and each fabric-wide max) still bumps the
+``comm.allreduce`` counter of :mod:`repro_torch.obs.metrics`: a count of
+what ran, so a BiCGStab solve of n iterations reads 1 + 3n.  The JAX
+package counts the ops of the lowered program instead (1 + 3).
 
 Every backend takes a batch of right-hand sides: an operand with one axis
 more than the coefficients (``nb = v.ndim - coeffs.ndim``) yields ``[B]``
@@ -38,6 +43,8 @@ from repro_torch.core.halo import FabricAxes
 from repro_torch.core.precision import F32, Policy
 from repro_torch.core.solvers.common import local_dots, local_partial
 from repro_torch.core.stencil import StencilCoeffs, apply_ref
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,11 +99,12 @@ def _make_reductions(names: tuple[str, ...], fused_reductions: bool,
 
     ``mesh_ndim`` enables the batch axis: operands of higher rank give
     per-RHS ``[B]`` partials, and a sync point reduces the stacked
-    ``[k, B]`` array at once."""
+    ``[k, B]`` array at once.  Every AllReduce bumps ``comm.allreduce``."""
     if names:
         raise NotImplementedError("multi-rank AllReduce (torch.distributed): next slice")
 
     def psum(x):
+        obs_metrics.counter("comm.allreduce").inc()
         return x
 
     if fused_reductions:
@@ -111,6 +119,7 @@ def _make_reductions(names: tuple[str, ...], fused_reductions: bool,
                                 for a, b in pairs])
 
     def reduce_max(x):
+        obs_metrics.counter("comm.allreduce").inc()
         return x
 
     return dots, reduce_partials, reduce_max
@@ -155,7 +164,14 @@ def fused_operator(coeffs: StencilCoeffs, fabric: FabricAxes | None = None, *,
     partials; one BiCGStab iteration is kernels plus 3 sync points.  An
     operand with a leading batch axis runs the batched kernels, all right-
     hand sides in one launch.  On CPU tensors every kernel takes its plain
-    version."""
+    version.
+
+    The stencil kernel's config comes from the tuning cache, looked up once
+    here (keyed by the card, spec, storage dtype and block, so the batch
+    size need not be known yet): a cached entry is passed to every launch,
+    and without one (or with a stale one) the kernel keeps its default plan
+    for whatever batch it is given."""
+    from repro_torch.core import tuning
     from repro_torch.kernels.fused_iter import dot_mixed, update_p, update_q_dots, update_xr_dots
     from repro_torch.kernels.stencil_nd.ops import fused_local_apply
 
@@ -166,8 +182,10 @@ def fused_operator(coeffs: StencilCoeffs, fabric: FabricAxes | None = None, *,
         _fabric_axis_names(fabric), fused_reductions, mesh_ndim=cf.ndim)
 
     cf_unit = StencilCoeffs(cf.diags)   # the kernel's unit-diagonal contract
+    device = next(iter(cf.diags.values())).device
+    config = tuning.cached_config(cf.spec, policy.storage, cf.shape, device=device)
     base_apply = lambda v: fused_local_apply(cf_unit, v, fabric, policy=policy,
-                                             schedule=sched)
+                                             schedule=sched, config=config)
     if cf.diag is None:
         apply = base_apply
     else:
@@ -214,6 +232,9 @@ def make_operator(backend: str, coeffs: StencilCoeffs, fabric: FabricAxes | None
         ctor = BACKENDS[backend]
     except KeyError:
         raise KeyError(f"unknown backend {backend!r}; have {sorted(BACKENDS)}") from None
-    if backend == "reference":
-        return ctor(coeffs, policy=policy, **kwargs)
-    return ctor(coeffs, fabric, policy=policy, **kwargs)
+    obs_metrics.counter(f"operator.build.{backend}").inc()
+    with obs_trace.span("operator.build", backend=backend, stencil=coeffs.spec.name,
+                        policy=policy.name):
+        if backend == "reference":
+            return ctor(coeffs, policy=policy, **kwargs)
+        return ctor(coeffs, fabric, policy=policy, **kwargs)

@@ -21,6 +21,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.precision import Policy
+from repro_torch.obs.metrics import record_solve
 
 
 @dataclasses.dataclass
@@ -174,3 +175,9 @@ def finish(carry, bnorm2: torch.Tensor, history=None) -> SolveResult:
     rel = torch.sqrt(res2 / torch.clamp(bnorm2, min=EPS))
     its = i.to(torch.int32) if isinstance(i, torch.Tensor) else torch.tensor(i, dtype=torch.int32)
     return SolveResult(x, its, rel, conv, brk, history=history)
+
+
+#: per-solve emission (iterations, per-RHS convergence, residual history)
+#: into the obs registry, under the JAX package's name; ``history[k]`` is
+#: the relative residual after iteration k+1 for every solver
+emit_solve_metrics = record_solve

@@ -33,6 +33,13 @@ from repro_torch.device import tensor_from_numpy
 DIAGS_3D = ("xp", "xm", "yp", "ym", "zp", "zm")
 DIAGS_2D = ("xp", "xm", "yp", "ym")
 
+# Offset (in mesh coordinates) of the neighbor each diagonal reads.
+OFFSETS = {
+    "xp": (1, 0, 0), "xm": (-1, 0, 0),
+    "yp": (0, 1, 0), "ym": (0, -1, 0),
+    "zp": (0, 0, 1), "zm": (0, 0, -1),
+}
+
 _AXES = "xyz"
 _STAR_NAME = re.compile(r"^([xyz])([pm])(\d*)$")
 
@@ -393,3 +400,54 @@ def high_order_star(shape: tuple[int, ...], radius: int = 4, dtype=torch.float32
 def rhs_for_solution(coeffs: StencilCoeffs, x_true: torch.Tensor) -> torch.Tensor:
     """b = A @ x_true in f32, for manufactured tests."""
     return apply_ref(coeffs.astype(torch.float32), x_true.to(torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# Op counts (paper Table I), for the performance model and roofline lines
+# ---------------------------------------------------------------------------
+
+def flops_per_point(ndim: int = 3) -> int:
+    """SpMV flops per meshpoint: 6 mul + 6 add (3D, unit diagonal) = 12.
+
+    Matches Table I: Matvec x2 per iteration = 24 of the 44 ops/meshpoint.
+    """
+    return 2 * (2 * ndim)
+
+
+def words_per_point(ndim: int = 3) -> int:
+    """Memory words touched per meshpoint per SpMV: 6 coeffs + v + u."""
+    return 2 * ndim + 2
+
+
+def spec_flops_per_point(spec: StencilSpec) -> int:
+    """SpMV flops per meshpoint for any family member: mul+add per offset.
+
+    star7 => 12 (Table I's 24/2), star25 => 48, box27 => 52.
+    """
+    return 2 * spec.n_offsets
+
+
+def spec_words_per_point(spec: StencilSpec) -> int:
+    """Memory words touched per meshpoint per SpMV: coeffs + v + u."""
+    return spec.n_offsets + 2
+
+
+def halo_words_per_spmv(spec: StencilSpec, block: tuple[int, ...],
+                        split_axes: tuple[int, ...] = (0, 1)) -> int:
+    """Words exchanged per SpMV by one rank: depth-r slabs on split axes.
+
+    Counts both directions; for box stencils the sequential corner-carrying
+    exchange also ships the already-received halo of earlier axes.
+    """
+    r = spec.radius
+    words = 0
+    padded = list(block)
+    for ax in split_axes:
+        slab = r
+        for i, n in enumerate(padded):
+            if i != ax:
+                slab *= n
+        words += 2 * slab
+        if spec.needs_corners:
+            padded[ax] += 2 * r
+    return words

@@ -53,3 +53,9 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+def device_name(device: str | torch.device) -> str:
+    """The card's name (``torch.cuda.get_device_name``), or ``cpu``."""
+    dev = torch.device(device)
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev.type

@@ -8,32 +8,47 @@
     PYTHONPATH=src python -m repro_torch.launch.solve --solver cg --backend fused
     PYTHONPATH=src python -m repro_torch.launch.solve --precond chebyshev --problem poisson
     PYTHONPATH=src python -m repro_torch.launch.solve --refine
+    PYTHONPATH=src python -m repro_torch.launch.solve --backend fused --autotune
+    PYTHONPATH=src python -m repro_torch.launch.solve --backend fused --obs --run-dir /tmp/run
+    PYTHONPATH=src python -m repro_torch.launch.solve --backend fused --profile --maxiter 5
 
 Counterpart of ``python -m repro.launch.solve``, with its flag names and
 defaults: builds a diagonally dominant system of the requested stencil shape,
 solves it with the chosen Krylov solver through the chosen backend (``fused``
 runs the CUDA kernels), optionally right-preconditioned, and reports
-iterations, the recurrence and true residuals, and the time per iteration on
-the device it ran on.  ``--nrhs B`` solves B right-hand sides as one block
+iterations, the recurrence and true residuals, the time per iteration on the
+device it ran on, the collectives the solve ran, and the achieved share of
+the card's f32 peak.  ``--nrhs B`` solves B right-hand sides as one block
 solve and reports each RHS's numbers; ``--refine`` runs 16-bit inner solves
-under f32 iterative refinement instead.  It runs on the card unless
-``--device cpu`` is given, and refuses to start without one.
+under f32 iterative refinement instead.  ``--autotune`` sweeps the stencil
+kernel's launch plans for this cell on the card when the tuning cache has no
+entry (``REPRO_TORCH_TUNING_CACHE`` or ``results/tuning_cache_torch.json``).
+``--obs`` records spans and metrics into a run bundle
+(``results/runs/<run_id>/`` or ``--run-dir``), and ``--profile`` adds a
+``torch.profiler`` trace in ``<run_dir>/torch_profile``.  It runs on the card
+unless ``--device cpu`` is given, and refuses to start without one.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 import torch
 
-from repro_torch.core import bicgstab, precision, stencil
+from repro_torch.core import bicgstab, perfmodel, precision, stencil
 from repro_torch.core.comm import SCHEDULES
+from repro_torch.core.halo import FabricAxes
 from repro_torch.core.operator import BACKENDS
 from repro_torch.core.precond import PRECONDS, PrecondConfig
 from repro_torch.core.solvers import SOLVERS
-from repro_torch.device import resolve_device
+from repro_torch.core.solvers.common import emit_solve_metrics
+from repro_torch.device import device_name, resolve_device
 from repro_torch.launch.mesh import make_mesh_for_devices
+from repro_torch.obs import manifest as obs_manifest
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 PROBLEMS = ["convdiff", "random", "poisson", "heterogeneous", "seismic"]
 
@@ -102,7 +117,7 @@ def manufactured_system(problem: str | None, spec: stencil.StencilSpec, shape, *
     return problem, cf, stencil.rhs_for_solution(cf, x_true)
 
 
-def parse_args(argv=None) -> argparse.Namespace:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.solve")
     ap.add_argument("--mesh", type=int, nargs=3, default=[48, 48, 32],
                     metavar=("X", "Y", "Z"))
@@ -128,6 +143,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "random for box, poisson for --solver cg/pipelined_cg; "
                          "heterogeneous is the raw variable-diagonal case where "
                          "--precond jacobi does work")
+    ap.add_argument("--autotune", action="store_true",
+                    help="sweep the stencil kernel's launch plans for this cell on the card "
+                         "if the tuning cache has no entry, then solve with the winner "
+                         "(cache: REPRO_TORCH_TUNING_CACHE or "
+                         "results/tuning_cache_torch.json)")
     ap.add_argument("--nrhs", type=int, default=1,
                     help="right-hand sides solved as one block (batched) Krylov solve; "
                          "every sync point reduces the stacked [k, B] partials")
@@ -141,7 +161,21 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "plain versions)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the problem (seed) and the manufactured solution (seed+1)")
-    return ap.parse_args(argv)
+    ap.add_argument("--obs", action="store_true",
+                    help="observability: spans + metrics + a run bundle "
+                         "results/runs/<run_id>/{manifest.json,events.jsonl,trace.json} "
+                         "(trace.json loads in Perfetto)")
+    ap.add_argument("--profile", action="store_true",
+                    help="run under torch.profiler into <run_dir>/torch_profile (implies "
+                         "--obs); fails if a run on the card records no device activity")
+    ap.add_argument("--run-dir", default=None,
+                    help="bundle directory override (implies --obs; default "
+                         "results/runs/<run_id>)")
+    return ap
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    return build_parser().parse_args(argv)
 
 
 def main(argv=None) -> dict:
@@ -155,10 +189,35 @@ def main(argv=None) -> dict:
         if (args.solver, args.backend, args.precond) != ("bicgstab", "spmd", "none"):
             raise SystemExit("--refine drives its own inner bicgstab/spmd solves and does "
                              "not honor --solver/--backend/--precond; drop those flags")
+    if args.autotune and args.device == "cpu":
+        raise SystemExit("--autotune times the CUDA stencil kernel with CUDA events and needs "
+                         "the card; on the CPU only the plain version runs. Drop --autotune "
+                         "or --device cpu")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device (torch.cuda.is_available() is False); "
                          "pass --device cpu to run on the CPU")
-    return run(args, resolve_device(args.device))
+    device = resolve_device(args.device)
+    args.obs = args.obs or args.profile or args.run_dir is not None
+    if not args.obs:
+        return run(args, device)
+    # the bundle holds this run's spans and events only
+    obs_metrics.reset()
+    obs_trace.reset()
+    obs_trace.enable(sync=True)
+    ctx = obs_manifest.start_run("solve", config=vars(args), run_dir=args.run_dir,
+                                 profile=args.profile, profile_cuda=device.type == "cuda")
+    failed = True
+    try:
+        out = run(args, device)
+        failed = False
+    finally:
+        try:
+            obs_manifest.finish_run(ctx, failed=failed)
+        finally:
+            obs_trace.disable()
+        print(f"run bundle: {ctx.run_dir}")
+    out["run_dir"] = ctx.run_dir
+    return out
 
 
 def _sync(device: torch.device) -> None:
@@ -174,11 +233,28 @@ def _true_rel_residual(cf: stencil.StencilCoeffs, x: torch.Tensor, b: torch.Tens
     return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b.double()))
 
 
+def _autotune(spec, pol, shape, mesh, nrhs: int, device: torch.device) -> dict:
+    """``--autotune``: sweep (or find in the cache) the kernel cell the
+    fused operator will look up, the local block under this fabric in the
+    storage dtype, timed on this fabric."""
+    from repro_torch.core import tuning
+
+    fabric = FabricAxes.from_mesh(mesh)
+    local = (shape[0] // fabric.nx, shape[1] // fabric.ny, shape[2] // fabric.nz)
+    rec = tuning.ensure_tuned(spec, pol.storage, local, nrhs=nrhs, fabric=fabric,
+                              device=device)
+    note = "cache hit" if rec["cache_hit"] else (
+        f"swept {rec['n_candidates']} configs, {rec['speedup_vs_default']:.3f}x the default")
+    print(f"autotune[{rec['key']}]: {note}, config={rec['config']}")
+    return rec
+
+
 def run(args: argparse.Namespace, device: torch.device) -> dict:
     shape = tuple(args.mesh)
     spec = stencil.get_spec(args.stencil)
     pol = precision.get_policy(args.policy)
     mesh = make_mesh_for_devices()
+    tuned = _autotune(spec, pol, shape, mesh, args.nrhs, device) if args.autotune else None
     t0 = time.perf_counter()
     problem, cf = manufactured_problem(args.problem, spec, shape, seed=args.seed,
                                        device=device, solver=args.solver)
@@ -188,7 +264,7 @@ def run(args: argparse.Namespace, device: torch.device) -> dict:
     _sync(device)
     setup = dict(problem_s=t1 - t0, x_true_s=time.perf_counter() - t1)
     b = stencil.rhs_for_solution(cf, x_true)
-    dev_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    dev_name = device_name(device)
     print(f"problem {problem}/{spec.name} (radius {spec.radius}, {spec.n_points} points) "
           f"{shape} on fabric {mesh.shape} solver={args.solver} backend={args.backend} "
           f"schedule={args.schedule} precond={args.precond} policy={pol.name} "
@@ -198,24 +274,45 @@ def run(args: argparse.Namespace, device: torch.device) -> dict:
     del x_true
 
     bs = b.to(pol.storage)
+    labels = dict(solver=args.solver, backend=args.backend, schedule=args.schedule,
+                  nrhs=args.nrhs, problem=problem, policy=pol.name)
+    before = obs_metrics.collective_counts()
 
     _sync(device)
     t0 = time.perf_counter()
-    res = bicgstab.solve_distributed(
-        mesh, cf, bs, tol=args.tol, maxiter=args.maxiter, policy=pol, solver=args.solver,
-        backend=args.backend,
-        precond=PrecondConfig(name=args.precond, degree=args.cheb_degree),
-        schedule=args.schedule, fused_reductions=not args.paper_separate_reductions)
+    with obs_trace.span("solve.krylov", **labels) as sp:
+        res = bicgstab.solve_distributed(
+            mesh, cf, bs, tol=args.tol, maxiter=args.maxiter, policy=pol, solver=args.solver,
+            backend=args.backend,
+            precond=PrecondConfig(name=args.precond, degree=args.cheb_degree),
+            schedule=args.schedule, fused_reductions=not args.paper_separate_reductions)
+        sp.block(res.x)
     _sync(device)
     dt = time.perf_counter() - t0
+    after = obs_metrics.collective_counts()
+    collectives = obs_metrics.record_collectives(
+        {k: after[k] - before[k] for k in after}, **labels)
+    emit_solve_metrics(res, wall_s=dt, **labels)
     out = dict(problem=problem, stencil=spec.name, shape=list(shape), policy=pol.name,
                solver=args.solver, backend=args.backend, precond=args.precond,
                nrhs=args.nrhs, device=dev_name,
                iterations=res.iterations.tolist(), converged=res.converged.tolist(),
                breakdown=res.breakdown.tolist(), rel_residual=res.rel_residual.tolist(),
-               wall_s=dt, **setup)
+               wall_s=dt, collectives=collectives, **setup)
+    if tuned is not None:
+        out["autotune"] = tuned
     most = max(out["iterations"]) if args.nrhs > 1 else out["iterations"]
     out["ms_per_iter"] = dt / max(most, 1) * 1e3
+    print(f"collectives (executed on one rank): allreduce={collectives['allreduce_total']} "
+          f"ppermute={collectives['ppermute_total']}")
+    # achieved share of the card's f32 peak, the paper's accounting (§VII:
+    # ~1/3 of peak on the CS-1)
+    achieved = (perfmodel.FLOPS_PER_PT * math.prod(shape)
+                * int(res.iterations.sum()) / max(dt, 1e-12))
+    frac = obs_metrics.roofline_fraction(achieved)
+    out["roofline"] = dict(achieved_flops_per_s=achieved, fraction=frac)
+    print(f"roofline: {achieved / 1e9:.2f} GFLOP/s achieved on {dev_name}, {frac:.2e} of an "
+          f"H100's f32 peak ({perfmodel.PEAK_FLOPS / 1e12:.0f} TFLOP/s, data sheet)")
     x = res.x
     del res, bs          # the solve's state is freed; x and b remain
 

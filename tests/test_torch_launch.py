@@ -185,3 +185,124 @@ def test_manufactured_system_draws_on_the_host(monkeypatch, problem):
     assert torch.equal(solve.manufactured_solution((4, 5, 6), seed=3, device="cpu", nrhs=2),
                        want)
     assert torch.equal(cpu_b, stencil.rhs_for_solution(cpu_cf, want))
+
+
+# --obs, --run-dir, --profile: the run bundle and the executed collective counts
+
+def _bundle_events(run_dir):
+    import json
+    import os
+
+    with open(os.path.join(run_dir, "events.jsonl")) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+@pytest.mark.parametrize("nrhs", ["1", "2"])
+@pytest.mark.parametrize("separate", [False, True], ids=["fused", "separate"])
+def test_cli_obs_bundle_counts_what_ran(tmp_path, nrhs, separate):
+    """Each sync point's AllReduce is counted as it runs (the identity on one
+    rank): 1 at setup + 3 per BiCGStab iteration, whatever the batch.  In the
+    paper's separate schedule each dot is one AllReduce, the setup's two
+    included: 2 + 5 per iteration (the JAX package's lowered program holds
+    the same 2 + 5).  The bundle's solve event carries the printed
+    iterations."""
+    import os
+
+    run_dir = str(tmp_path / "run")
+    extra = ["--paper-separate-reductions"] if separate else []
+    res = solve.main(CPU_F32 + ["--obs", "--run-dir", run_dir, "--nrhs", nrhs] + extra)
+    assert res["run_dir"] == run_dir
+    for name in ("manifest.json", "events.jsonl", "trace.json"):
+        assert os.path.exists(os.path.join(run_dir, name)), name
+    events = _bundle_events(run_dir)
+    (ev,) = [e for e in events if e["event"] == "solve"]
+    iters = res["iterations"] if nrhs == "2" else [res["iterations"]]
+    assert ev["iterations"] == iters and ev["n_rhs"] == int(nrhs)
+    (col,) = [e for e in events if e["event"] == "collectives"]
+    setup, per_iter = (2, 5) if separate else (1, 3)
+    want = {"allreduce_total": setup + per_iter * max(iters), "ppermute_total": 0}
+    assert {k: col[k] for k in want} == want == res["collectives"]
+
+
+def test_cli_obs_changes_no_bits_and_records_the_spans(tmp_path, monkeypatch):
+    import json
+
+    xs = []
+    real = bicgstab.solve_distributed
+
+    def keep_x(*a, **kw):
+        res = real(*a, **kw)
+        xs.append(res.x.clone())
+        return res
+
+    monkeypatch.setattr(bicgstab, "solve_distributed", keep_x)
+    plain = solve.main(CPU_F32)
+    run_dir = tmp_path / "run"
+    traced = solve.main(CPU_F32 + ["--obs", "--run-dir", str(run_dir)])
+    assert torch.equal(xs[0], xs[1]) and plain["iterations"] == traced["iterations"]
+    assert plain["collectives"] == traced["collectives"]
+    names = {e["name"] for e in json.loads((run_dir / "trace.json").read_text())["traceEvents"]}
+    assert {"solve.krylov", "operator.build", "comm.halo.issue", "comm.halo.interior"} <= names
+    from repro_torch.obs import trace
+
+    assert not trace.is_enabled()           # a later solve in the process pays nothing
+
+
+def test_cli_profile_writes_a_torch_trace(tmp_path):
+    import os
+
+    run_dir = tmp_path / "run"
+    res = solve.main(CPU_F32 + ["--profile", "--run-dir", str(run_dir), "--maxiter", "3"])
+    assert res["run_dir"] == str(run_dir)
+    assert os.path.getsize(run_dir / "torch_profile" / "torch_trace.json") > 0
+
+
+def test_cli_profile_keeps_the_solves_own_error(tmp_path, monkeypatch):
+    """A solve that raises under ``--profile`` raises its own error, not the
+    profiler's "no device activity" check, which a run with no kernel fails."""
+    from repro_torch.obs import trace
+
+    real_start = solve.obs_manifest.start_run
+
+    def start_run(*a, **kw):
+        ctx = real_start(*a, **kw)
+        ctx._profiler.cuda = True          # as on the card
+        return ctx
+
+    def run(args, device):
+        raise ValueError("the solve's own error")
+
+    monkeypatch.setattr(solve.obs_manifest, "start_run", start_run)
+    monkeypatch.setattr(solve, "run", run)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(trace, "device_time_us", lambda prof: 0.0)
+    with pytest.raises(ValueError, match="the solve's own error"):
+        solve.main(CPU_F32 + ["--profile", "--run-dir", str(tmp_path / "run")])
+    assert (tmp_path / "run" / "manifest.json").exists()
+
+
+def test_cli_prints_collectives_and_roofline(capsys):
+    res = solve.main(CPU_F32)
+    printed = capsys.readouterr().out
+    n = res["collectives"]["allreduce_total"]
+    assert f"collectives (executed on one rank): allreduce={n} ppermute=0" in printed
+    assert "of an H100's f32 peak (67 TFLOP/s, data sheet)" in printed and "on cpu" in printed
+    assert 0 < res["roofline"]["fraction"] < 1
+
+
+def test_cli_accepts_every_flag_of_the_reference():
+    """Every option ``python -m repro.launch.solve`` declares, the port's
+    parser declares too (read from the reference's source: its parser is
+    built inside ``main``)."""
+    import ast
+    import os
+
+    from _torch_port import REPO
+
+    src = open(os.path.join(REPO, "src", "repro", "launch", "solve.py")).read()
+    ref = {a.value for node in ast.walk(ast.parse(src)) if isinstance(node, ast.Call)
+           and getattr(node.func, "attr", None) == "add_argument"
+           for a in node.args if isinstance(a, ast.Constant) and str(a.value).startswith("--")}
+    assert {"--autotune", "--obs", "--profile", "--run-dir", "--nrhs"} <= ref
+    port = {opt for action in solve.build_parser()._actions for opt in action.option_strings}
+    assert ref <= port, sorted(ref - port)
