@@ -128,6 +128,27 @@ Phases (one line of output each, JSON where it carries numbers):
    kernel's device events.  (d) ``perfmodel.iteration_time_model`` for
    ``cs1_paper`` on one card beside phase 4's ms/iter and the bytes bound.
 
+10. the SIMPLE CFD application (``python -m repro_torch.launch.cfd``), whose
+   2D fields have no kernel: none of its runs may launch K1-K6.  (a) The
+   ``cavity_ghia`` cell (n=32, Re=100, spmd, f32, ``--outer 400 --tol
+   5e-6``) through the CLI on the card and on the CPU: the card's run
+   reaches tol and passes the Ghia bands, its field is divergence-free to
+   1e-4 with wall faces exactly 0, and its centerline is within 1e-3 of
+   the CPU run's; both outer-iteration counts are recorded.  (b)
+   ``cavity_raw_jacobi`` and ``cavity_pipelined`` each converge; the cavity
+   at ``bf16_mixed`` for 50 outer iterations is finite and its three
+   systems, formed as raw rows in bf16 storage, have no zero diagonal.
+   (c) The transient cavity at n=1024 (dt 0.05, 6 steps x 5 outer
+   iterations, a checkpoint every 2 steps) with a fault injected at step 3
+   equals the uninterrupted march bit for bit, metrics included; its last
+   checkpoint restored on the CPU equals the card's state bit for bit; the
+   channel at the same size keeps its outlet flux within 1e-5 of u_in.
+   (d) The steady cavity at n=8192 (67.1M cells), f32, 10 outer iterations
+   from rest: ms per outer iteration, peak memory, ``measure_solve_share``
+   (3 reps: the paper's Table II solve/formation split) and the device
+   launches of one outer iteration (torch.profiler); and ms per outer
+   iteration at n=4096 in ``bf16_mixed``.  (d) records and limits nothing.
+
 ``--profile`` adds a torch.profiler trace of a few iterations of each
 measured path (phases 4, 5, 7 and 8b): device time by kernel and the card's
 idle share.
@@ -1563,6 +1584,248 @@ def phase9(torch, smi: str, phase4: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the SIMPLE CFD application (2D fields: no kernel on its path)
+# ---------------------------------------------------------------------------
+
+#: the CLI's steady limits, as the reference's Ghia run takes them
+CFD_STEADY = ["--outer", "400", "--tol", "5e-6"]
+CFD_BF16_OUTERS = 50
+#: 10c: the transient march, its checkpoints and the injected fault
+CFD_TRANSIENT_N, CFD_FAULT_STEP = 1024, 3
+#: 10d: the full-size cavity, f32 and bf16_mixed
+CFD_FULL_N, CFD_BF16_N, CFD_FULL_OUTERS, CFD_SHARE_REPS = 8192, 4096, 10, 3
+
+
+def cell_flags(name: str) -> list[str]:
+    """The CLI flags of a ``configs/cfd_scenarios.py`` cell."""
+    from repro_torch.configs.cfd_scenarios import CFD_CELLS
+
+    c = CFD_CELLS[name]
+    flags = ["--scenario", c.scenario, "--n", str(c.n), "--re", str(c.reynolds),
+             "--solver", c.solver, "--backend", c.backend, "--precond", c.precond,
+             "--policy", c.policy, "--schedule", c.schedule]
+    if not c.normalize:
+        flags.append("--raw-coeffs")
+    if c.p_solver:
+        flags += ["--p-solver", c.p_solver]
+    return flags
+
+
+def run_cfd_quiet(argv: list[str], device: str = "cuda") -> dict:
+    """``python -m repro_torch.launch.cfd argv --device device`` in this
+    process, its lines kept off the output; a run that exits (a failed Ghia
+    check) is a failure and gives ``{}``."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import cfd
+
+    argv = argv + ["--device", device]
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return cfd.main(argv)
+    except SystemExit as e:
+        check(False, f"10: cfd {' '.join(argv)} exited {e.code}: {buf.getvalue()[-800:]}")
+        return {}
+
+
+def cavity_fields(torch, res: dict) -> dict:
+    """The converged cavity's own checks (``tests/test_cfd.py``): the largest
+    divergence of the staggered field and the largest wall-face velocity."""
+    from repro_torch.apps.cfd import to_staggered
+
+    u, v, _ = res["state"]
+    us, vs = to_staggered(u, v)
+    div = (us[1:, :] - us[:-1, :] + vs[:, 1:] - vs[:, :-1]) * (1.0 / u.shape[0])
+    walls = torch.stack([us[0].abs().max(), us[-1].abs().max(),
+                         vs[:, 0].abs().max(), vs[:, -1].abs().max()])
+    return dict(max_div=float(div.abs().max()), max_wall=float(walls.max()))
+
+
+def steady_summary(res: dict) -> dict:
+    return {k: res.get(k) for k in ("outer_iterations", "converged", "ghia_ok", "wall_s",
+                                    "device", "policy", "precond", "p_solver")}
+
+
+def bf16_diagonals(torch, state) -> dict:
+    """min |diagonal| of the u, v and pressure systems formed from ``state``
+    as raw rows in bf16 storage: the clamp-before-cast rule keeps each
+    positive."""
+    from repro_torch.apps.cfd import driver, grid, momentum, pressure
+    from repro_torch.core import precision
+    from repro_torch.core.halo import FabricAxes, gather_halo
+
+    u, v, p = state
+    n = u.shape[0]
+    cfg = grid.CFDConfig(n=n, policy=precision.MIXED)
+    fab = FabricAxes()
+    gi, gj = grid.global_indices(n, (n, n), 0, 0, device=u.device)
+    up, vp = gather_halo(u, fab, 1, corners=True), gather_halo(v, fab, 1, corners=True)
+    pp = gather_halo(p, fab, 1)
+    usys = momentum.form_u_system(cfg, up, vp, pp, u, u, gi, gj)
+    vsys = momentum.form_v_system(cfg, up, vp, pp, v, v, gi, gj)
+    div = pressure.divergence(cfg, u, v, gather_halo(u, fab, 1), gather_halo(v, fab, 1), gi)
+    psys = pressure.form_pressure_system(cfg, usys[6], vsys[6], gather_halo(usys[6], fab, 1),
+                                         gather_halo(vsys[6], fab, 1), div, gi, gj)
+    raw = driver.SolverOptions(normalize=False)
+    out = {}
+    for name, rows in (("u", usys), ("v", vsys), ("p", psys)):
+        cf, _ = driver._system_coeffs(raw, precision.MIXED, rows[:5], rows[5])
+        out[name] = float(cf.diag.float().abs().min())
+    return out
+
+
+def cfd_transient(torch, smi: str) -> dict:
+    """10c: the checkpointed cavity march with a fault at step 3 against the
+    uninterrupted one, the card's checkpoint restored on the CPU, and the
+    channel's outlet flux."""
+    import shutil
+    import tempfile
+
+    from repro_torch.apps.cfd import CFDConfig, TransientConfig, run_transient
+    from repro_torch.checkpoint import CheckpointManager
+
+    cfg = CFDConfig(n=CFD_TRANSIENT_N, reynolds=100.0)
+    tcfg = TransientConfig(dt=0.05, n_steps=6, outers_per_step=5, checkpoint_every=2)
+    t0 = time.perf_counter()
+    (u, v, p), ref_m = run_transient(cfg, tcfg, device="cuda")
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    armed = {"v": True}
+
+    def hook(step):
+        if step == CFD_FAULT_STEP and armed["v"]:
+            armed["v"] = False
+            raise RuntimeError("injected fault")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cfd_")
+    try:
+        state, metrics = run_transient(cfg, tcfg, checkpoint_dir=tmp, failure_hook=hook,
+                                       device="cuda")
+        like = (tuple(torch.zeros(cfg.n, cfg.n) for _ in range(3)), ())
+        (restored, _), step = CheckpointManager(tmp).restore_latest(like)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    replay_equal = all(torch.equal(a, b) for a, b in zip(state, (u, v, p)))
+    cpu_equal = all(torch.equal(a, b.cpu()) for a, b in zip(restored, state))
+    check(not armed["v"], "10c: the fault was never injected")
+    check([m["step"] for m in metrics] == list(range(tcfg.n_steps)) and metrics == ref_m,
+          f"10c: replayed metrics {metrics} != {ref_m}")
+    check(replay_equal, "10c: the replayed march differs from the uninterrupted one")
+    check(step == tcfg.n_steps and cpu_equal,
+          f"10c: the card's checkpoint (step {step}) restored on the CPU differs")
+    ch_cfg = CFDConfig(n=CFD_TRANSIENT_N, reynolds=50.0, scenario="channel")
+    (cu, _, _), ch_m = run_transient(ch_cfg, tcfg, device="cuda")
+    outflux = float(cu[-1, :].sum() * (1.0 / ch_cfg.n))
+    check(abs(outflux - ch_cfg.u_in) <= 1e-5, f"10c: channel outlet flux {outflux!r}")
+    out = dict(n=cfg.n, dt=tcfg.dt, steps=tcfg.n_steps, outers_per_step=tcfg.outers_per_step,
+               checkpoint_every=tcfg.checkpoint_every, fault_step=CFD_FAULT_STEP,
+               replay_bitwise=replay_equal, cpu_restore_bitwise=cpu_equal,
+               ms_per_step=t_ref / tcfg.n_steps * 1e3, final_continuity=ref_m[-1]["continuity"],
+               channel_outflux=outflux, channel_continuity=ch_m[-1]["continuity"])
+    emit(dict(phase="cfd_transient", card=smi, **out))
+    return out
+
+
+def cfd_full(torch, smi: str, n: int, policy: str, *, share: bool) -> dict:
+    """10d: the steady cavity at n x n for a few outer iterations from rest
+    (ms per outer iteration, peak memory), then (``share``) the paper's
+    Table II split and the device launches of one outer iteration."""
+    from repro_torch.apps.cfd import CFDConfig, SolverOptions, driver, solve_steady
+    from repro_torch.core import precision
+    from repro_torch.launch.mesh import make_mesh_for_devices
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = CFDConfig(n=n, outer_iters=CFD_FULL_OUTERS, tol=0.0,
+                    policy=precision.get_policy(policy))
+    opts, mesh = SolverOptions(backend="spmd"), make_mesh_for_devices()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u, v, p, hist = solve_steady(cfg, opts, mesh, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = dict(n=n, cells=n * n, policy=policy, outers=len(hist),
+               ms_per_outer=wall / len(hist) * 1e3, continuity=hist,
+               finite=all(math.isfinite(h) for h in hist)
+               and bool(torch.isfinite(torch.stack([u.sum(), v.sum(), p.sum()])).all()),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if share:
+        check(out["finite"] and len(hist) == CFD_FULL_OUTERS,
+              f"10d: n={n} {policy} ran {len(hist)} outer iterations, continuity {hist}")
+        out["split"] = driver.measure_solve_share(cfg, opts, mesh, (u, v, p),
+                                                  reps=CFD_SHARE_REPS)
+        step = driver.make_step_fn(cfg, opts, mesh)
+        prof = profile_window(torch, lambda: step(u, v, p, u, v))
+        out["launches_per_outer"] = prof.pop("launches")
+        out["profile"] = prof
+    emit(dict(phase="cfd_full", card=smi, **out))
+    return out
+
+
+def phase10(torch, smi: str) -> dict:
+    """10a the Ghia cell on the card and the CPU, 10b the other steady
+    cells, 10c the transient fault replay, 10d full size (module
+    docstring); none of it may launch a kernel."""
+    from repro_torch.kernels import launch_counts
+
+    before = launch_counts()
+    t0 = time.perf_counter()
+    out: dict = {}
+
+    # -- 10a: Ghia validation, the card against the port's CPU run -------------
+    ghia = cell_flags("cavity_ghia") + CFD_STEADY
+    card, cpu = run_cfd_quiet(ghia), run_cfd_quiet(ghia, device="cpu")
+    if card and cpu:
+        fields = cavity_fields(torch, card)
+        gap = max(abs(a - b) for a, b in zip(card["centerline"], cpu["centerline"]))
+        check(card["converged"] and card["ghia_ok"], f"10a: {steady_summary(card)}")
+        check(fields["max_div"] < 1e-4, f"10a: divergence {fields['max_div']!r}")
+        check(fields["max_wall"] == 0.0, f"10a: wall faces {fields['max_wall']!r}")
+        check(gap <= 1e-3, f"10a: centerline {gap!r} from the CPU run's")
+        out["ghia"] = dict(on_card=steady_summary(card), on_cpu=steady_summary(cpu),
+                           centerline_gap=gap, centerline_min=min(card["centerline"]),
+                           **fields)
+        emit(dict(phase="cfd_ghia", card=smi, **out["ghia"]))
+
+    # -- 10b: the other steady cells, and the cavity at bf16_mixed -------------
+    out["cells"] = {}
+    for name in ("cavity_raw_jacobi", "cavity_pipelined"):
+        res = run_cfd_quiet(cell_flags(name) + CFD_STEADY)
+        if res:
+            check(res["converged"], f"10b: {name} did not converge: {steady_summary(res)}")
+            out["cells"][name] = steady_summary(res)
+    res = run_cfd_quiet(cell_flags("cavity_ghia") + ["--policy", "bf16_mixed", "--outer",
+                                                     str(CFD_BF16_OUTERS), "--no-check"])
+    if res:
+        finite = all(bool(torch.isfinite(f).all()) for f in res["state"])
+        diags = bf16_diagonals(torch, res["state"])
+        check(finite, f"10b: the bf16_mixed cavity is not finite after {CFD_BF16_OUTERS} "
+                      f"outer iterations (continuity {res['history'][-5:]})")
+        check(all(d > 0 for d in diags.values()), f"10b: a zero bf16 diagonal: {diags}")
+        out["cells"]["cavity_bf16_mixed"] = dict(steady_summary(res), finite=finite,
+                                                 continuity=res["history"][-1],
+                                                 min_bf16_diagonal=diags)
+    emit(dict(phase="cfd_cells", card=smi, **out["cells"]))
+
+    # -- 10c: transient fault replay, checkpoints across devices ----------------
+    out["transient"] = cfd_transient(torch, smi)
+
+    # -- 10d: full size -----------------------------------------------------------
+    out["full"] = cfd_full(torch, smi, CFD_FULL_N, "f32", share=True)
+    out["full_bf16"] = cfd_full(torch, smi, CFD_BF16_N, "bf16_mixed", share=False)
+
+    after = launch_counts()
+    check(after == before, f"10: the CFD runs launched kernels: {before} -> {after}")
+    out["kernel_launches"] = {k: after[k] - before[k] for k in after}
+    out["seconds"] = time.perf_counter() - t0
+    emit(dict(phase="cfd_clock", card=smi, seconds=out["seconds"],
+              kernel_launches=out["kernel_launches"]))
+    return out
+
+
 def profile_window(torch, run) -> dict:
     """Device time by kernel over ``run()`` (torch.profiler, CUDA activity)
     and the card's idle share of the window; ``run`` once first, outside
@@ -1584,7 +1847,7 @@ def profile_window(torch, run) -> dict:
     busy = sum(k["ms"] for k in kernels.values())
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:16])
     return dict(window_ms=window_ms, busy_ms=busy, idle_share=1 - busy / window_ms,
-                kernels_by_device_ms=top)
+                launches=sum(k["count"] for k in kernels.values()), kernels_by_device_ms=top)
 
 
 def profile_paths(torch, iters: int = PROFILE_ITERS) -> list[dict]:
@@ -1799,6 +2062,9 @@ def main(argv=None) -> int:
 
     # -- phase 9: the tuning cache, observability and the performance model ----
     record["phase9"] = phase9(torch, smi, record["paper_mesh"])
+
+    # -- phase 10: the SIMPLE CFD application ----------------------------------
+    record["cfd"] = phase10(torch, smi)
 
     # -- the kernels line ------------------------------------------------------
     path_counts = {"paper_mesh": counts, "batched": counts5, "ref_fused": counts7}

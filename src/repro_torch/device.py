@@ -55,6 +55,12 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for the card's queued work; a CPU device has none."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def device_name(device: str | torch.device) -> str:
     """The card's name (``torch.cuda.get_device_name``), or ``cpu``."""
     dev = torch.device(device)

@@ -44,7 +44,7 @@ from repro_torch.core.operator import BACKENDS
 from repro_torch.core.precond import PRECONDS, PrecondConfig
 from repro_torch.core.solvers import SOLVERS
 from repro_torch.core.solvers.common import emit_solve_metrics
-from repro_torch.device import device_name, resolve_device
+from repro_torch.device import device_name, resolve_device, synchronize
 from repro_torch.launch.mesh import make_mesh_for_devices
 from repro_torch.obs import manifest as obs_manifest
 from repro_torch.obs import metrics as obs_metrics
@@ -200,29 +200,7 @@ def main(argv=None) -> dict:
     args.obs = args.obs or args.profile or args.run_dir is not None
     if not args.obs:
         return run(args, device)
-    # the bundle holds this run's spans and events only
-    obs_metrics.reset()
-    obs_trace.reset()
-    obs_trace.enable(sync=True)
-    ctx = obs_manifest.start_run("solve", config=vars(args), run_dir=args.run_dir,
-                                 profile=args.profile, profile_cuda=device.type == "cuda")
-    failed = True
-    try:
-        out = run(args, device)
-        failed = False
-    finally:
-        try:
-            obs_manifest.finish_run(ctx, failed=failed)
-        finally:
-            obs_trace.disable()
-        print(f"run bundle: {ctx.run_dir}")
-    out["run_dir"] = ctx.run_dir
-    return out
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    return obs_manifest.run_bundled("solve", args, device, run)
 
 
 def _true_rel_residual(cf: stencil.StencilCoeffs, x: torch.Tensor, b: torch.Tensor) -> float:
@@ -258,10 +236,10 @@ def run(args: argparse.Namespace, device: torch.device) -> dict:
     t0 = time.perf_counter()
     problem, cf = manufactured_problem(args.problem, spec, shape, seed=args.seed,
                                        device=device, solver=args.solver)
-    _sync(device)
+    synchronize(device)
     t1 = time.perf_counter()
     x_true = manufactured_solution(shape, seed=args.seed, device=device, nrhs=args.nrhs)
-    _sync(device)
+    synchronize(device)
     setup = dict(problem_s=t1 - t0, x_true_s=time.perf_counter() - t1)
     b = stencil.rhs_for_solution(cf, x_true)
     dev_name = device_name(device)
@@ -278,7 +256,7 @@ def run(args: argparse.Namespace, device: torch.device) -> dict:
                   nrhs=args.nrhs, problem=problem, policy=pol.name)
     before = obs_metrics.collective_counts()
 
-    _sync(device)
+    synchronize(device)
     t0 = time.perf_counter()
     with obs_trace.span("solve.krylov", **labels) as sp:
         res = bicgstab.solve_distributed(
@@ -287,7 +265,7 @@ def run(args: argparse.Namespace, device: torch.device) -> dict:
             precond=PrecondConfig(name=args.precond, degree=args.cheb_degree),
             schedule=args.schedule, fused_reductions=not args.paper_separate_reductions)
         sp.block(res.x)
-    _sync(device)
+    synchronize(device)
     dt = time.perf_counter() - t0
     after = obs_metrics.collective_counts()
     collectives = obs_metrics.record_collectives(
@@ -338,10 +316,10 @@ def run(args: argparse.Namespace, device: torch.device) -> dict:
 def _refine(mesh, cf, b, x_true, pol, problem, dev_name) -> dict:
     """``--refine``: f32 iterative refinement around 16-bit inner solves."""
     device = b.device
-    _sync(device)
+    synchronize(device)
     t0 = time.perf_counter()
     x, rels = bicgstab.solve_refined(cf, b, mesh=mesh, inner_policy=pol)
-    _sync(device)
+    synchronize(device)
     dt = time.perf_counter() - t0
     out = dict(problem=problem, stencil=cf.spec.name, shape=list(cf.shape), policy=pol.name,
                device=dev_name, refine_rel_residuals=rels.tolist(),

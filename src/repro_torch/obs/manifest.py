@@ -193,6 +193,32 @@ def finish_run(ctx: RunContext, *, extra: dict | None = None, failed: bool = Fal
     return man
 
 
+def run_bundled(kind: str, args, device, run) -> dict:
+    """``run(args, device)`` recorded into a run bundle (what ``--obs``
+    does): the registry and the spans start empty, spans synchronise the
+    card, ``args.profile``/``args.run_dir`` configure the bundle, and the
+    bundle is written whether or not the run raises (a raising run's
+    profile skips its device-activity check, so the run's own error is the
+    one raised).  Returns the run's dict with ``run_dir`` added."""
+    metrics.reset()
+    trace.reset()
+    trace.enable(sync=True)
+    ctx = start_run(kind, config=vars(args), run_dir=args.run_dir, profile=args.profile,
+                    profile_cuda=device.type == "cuda")
+    failed = True
+    try:
+        out = run(args, device)
+        failed = False
+    finally:
+        try:
+            finish_run(ctx, failed=failed)
+        finally:
+            trace.disable()
+        print(f"run bundle: {ctx.run_dir}")
+    out["run_dir"] = ctx.run_dir
+    return out
+
+
 def validate_manifest(man: dict) -> list[str]:
     """Schema check used by tests and ``compare_runs``.  Returns a list of
     problems (empty == valid)."""

@@ -1,5 +1,7 @@
 """The port's import boundary: ``repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor the JAX package ``repro`` (only the tests import both)."""
+neither ``jax`` nor the JAX package ``repro`` (only the tests import both),
+nor ``ml_dtypes``, which the JAX package's checkpoints use and a card's
+machine may lack."""
 
 import ast
 import json
@@ -12,7 +14,7 @@ pytest.importorskip("torch")
 
 from _torch_port import REPO, run_python  # noqa: E402
 
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _port_files():
@@ -45,6 +47,8 @@ def test_scan_covers_the_package():
     names = {os.path.relpath(p, REPO) for p in _port_files()}
     assert "chip_smoke.py" in names and len(names) >= 20
     assert "src/repro_torch/launch/solve.py" in names
+    assert {"src/repro_torch/launch/cfd.py", "src/repro_torch/checkpoint/manager.py",
+            "src/repro_torch/runtime/runner.py", "src/repro_torch/apps/cfd/driver.py"} <= names
 
 
 def test_entry_point_loads_neither_package():
@@ -52,8 +56,10 @@ def test_entry_point_loads_neither_package():
         import json, sys
         import repro_torch.launch.solve, repro_torch.kernels.stencil_nd.ops
         import repro_torch.kernels.fused_iter.ops
+        import repro_torch.launch.cfd, repro_torch.core.simple_cfd
+        import repro_torch.configs.cfd_scenarios, repro_torch.checkpoint, repro_torch.runtime
         print(json.dumps(sorted(m for m in sys.modules
-                                if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
-    """)
+                                if m.split(".")[0] in %r)))
+    """ % (FORBIDDEN,))
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
