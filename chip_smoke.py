@@ -149,9 +149,30 @@ Phases (one line of output each, JSON where it carries numbers):
    launches of one outer iteration (torch.profiler); and ms per outer
    iteration at n=4096 in ``bf16_mixed``.  (d) records and limits nothing.
 
+11. the dense LM serving path (``repro_torch.models``), which reaches no
+   kernel: none of its runs may launch K1-K6, and the matrix-product flags
+   it sets (no TF32, no bf16 reduced-precision reduction) are recorded.
+   (a) The four smoke configs (B 2, T 32, 8 decodes) and (b) ``qwen2_1_5b``
+   at full width (28 layers, B 1, T 64, 4 decodes), on one set of seeded
+   weights, served on the card and on the CPU in f32 and in bf16, every
+   decode fed the CPU f32 run's greedy token: f32 logits within 16 f32 ulps
+   of the CPU's largest |logit| at smoke width (the tests' tolerance) and
+   2^-10 of it at full width; the card's bf16 logits at most 2 x as far
+   from the CPU's f32 logits as the CPU's bf16 logits are; greedy tokens
+   equal wherever the CPU's top-2 gap exceeds the tolerance.  (c)
+   ``qwen2_1_5b`` serving 8 requests of 2,048 prompt tokens and 128 greedy
+   new tokens (prefill + 127 decodes), twice: prefill ms and tokens/s,
+   decode ms/step and tokens/s, peak memory, each beside its bound (the
+   prefill's operations at 989 TFLOP/s or its bytes, one decode step's
+   weights and cache bytes at 3.35 TB/s).  (d) 32,768 prompt tokens + 32 at
+   batch 1 (``prefill_32k``/``decode_32k`` with the batch cut from 32 and
+   128).  (e) ``gemma3_12b`` at full width cut to one period (6 layers: 5
+   windowed at 1,024, 1 global) over 4,096 + 16 tokens.  Every logit of
+   (c)-(e) must be finite.
+
 ``--profile`` adds a torch.profiler trace of a few iterations of each
-measured path (phases 4, 5, 7 and 8b): device time by kernel and the card's
-idle share.
+measured path (phases 4, 5, 7 and 8b) and of 5 decode steps of 11c:
+device time by kernel and the card's idle share.
 
 The ``kernels`` line lists every kernel with the launches of the path that
 runs it (K1-K5: phase 4; K1b-K5b: phase 5; K6: phase 7's paper-mesh run).
@@ -1895,6 +1916,281 @@ def profile_paths(torch, iters: int = PROFILE_ITERS) -> list[dict]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the LM serving path (dense decoder family; no kernel on its path)
+# ---------------------------------------------------------------------------
+
+PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor cores, NVIDIA data sheet
+LM_ARCHS = ("qwen2_1_5b", "deepseek_7b", "stablelm_12b", "gemma3_12b")
+#: (batch, prompt tokens, decode steps) of each run
+LM_SMOKE = (2, 32, 8)        # 11a: the tests' smoke shapes
+LM_WIDE_CHECK = (1, 64, 4)   # 11b: qwen2_1_5b at full width, card against CPU
+LM_SERVE = (8, 2048, 128)    # 11c: requests, prompt, new tokens each (prefill + 127 decodes)
+LM_LONG = (1, 32768, 32)     # 11d: prefill_32k / decode_32k, batch cut from 32 / 128 to 1
+LM_WINDOW = (1, 4096, 16)    # 11e: gemma3_12b at full width, depth cut 48 -> 6 (one period)
+#: f32 logits, card against CPU, as a share of the CPU's largest |logit|:
+#: at smoke width the f32 tolerance of tests/test_torch_lm_serve.py (16 ulps);
+#: at full width 2^-10, for 28 layers of sums over 1,536-8,960 terms in
+#: other orders (each layer's relative error about sqrt(n) eps ~ 100 eps,
+#: summed over 28 layers ~ 2^-11.5, with 3x room)
+LM_F32_TOL = {"smoke": 16 * EPS_F32, "wide": 2.0 ** -10}
+#: bf16 logits: the card's bf16 run may be at most this many times further
+#: from the CPU's f32 run than the CPU's own bf16 run is
+LM_BF16_FACTOR = 2.0
+
+
+def lm_models(torch, cfg, tree, device, dtype):
+    """The model of ``tree`` (a stacked parameter tree) on ``device`` in
+    ``dtype`` (bfloat16: the tree as it is, norms in f32; float32: every
+    leaf widened exactly)."""
+    from repro_torch.models.param import map_tree
+    from repro_torch.models.transformer import DecoderLM
+
+    c = dataclasses.replace(cfg, dtype=dtype)
+    return c, DecoderLM.from_tree(c, map_tree(
+        lambda t: t.to(device=device, dtype=torch.float32 if dtype == torch.float32
+                       else t.dtype), tree))
+
+
+def lm_run(torch, cfg, model, tokens, steps: int, forced=None):
+    """Prefill + ``steps`` decodes; returns every step's last-position logits
+    as one f32 CPU tensor (steps + 1, B, V) and the tokens fed to the
+    decodes (the greedy ones unless ``forced``)."""
+    from repro_torch.models import model as M
+
+    dev = model.embed.device
+    B, T = tokens.shape
+    caches = M.init_caches(cfg, B, T + steps, dev)
+    logits, caches = M.make_prefill_step(cfg, M.SHAPES["prefill_32k"])(
+        model, {"tokens": tokens.to(dev)}, caches)
+    serve = M.make_serve_step(cfg)
+    out, fed = [logits[:, -1].float().cpu()], []
+    for s in range(steps):
+        tok = forced[s] if forced is not None else out[-1].argmax(-1)
+        fed.append(tok)
+        logits, caches = serve(model, {"token": tok[:, None].to(dev)}, caches)
+        out.append(logits[:, -1].float().cpu())
+    return torch.stack(out), torch.stack(fed)
+
+
+def lm_card_vs_cpu(torch, cfg, tree, shape, f32_tol: float) -> dict:
+    """One model's weights served on the card and on the CPU, each in f32
+    and bf16, every decode fed the CPU f32 run's greedy tokens.  f32: the
+    card within ``f32_tol`` of the CPU's largest |logit|; bf16: the card no
+    more than ``LM_BF16_FACTOR`` times as far from the CPU's f32 logits as
+    the CPU's bf16 logits are.  Greedy tokens agree wherever the CPU's top-2
+    gap exceeds the tolerance."""
+    B, T, steps = shape
+    tokens = torch.randint(0, cfg.vocab, (B, T), generator=torch.Generator().manual_seed(11))
+    runs = {}
+    for side, dev in (("cpu", "cpu"), ("card", "cuda")):
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            c, model = lm_models(torch, cfg, tree, dev, dt)
+            forced = runs["cpu_f32"][1] if runs else None
+            runs[f"{side}_{name}"] = lm_run(torch, c, model, tokens, steps, forced)
+            del model
+            torch.cuda.empty_cache()
+    cpu32, cpu16 = runs["cpu_f32"][0], runs["cpu_bf16"][0]
+    card32, card16 = runs["card_f32"][0], runs["card_bf16"][0]
+
+    def gap(a, b):
+        return float((a - b).abs().max())
+
+    tol32 = f32_tol * float(cpu32.abs().max())
+    ref16 = gap(cpu16, cpu32)
+    out = dict(f32_err=gap(card32, cpu32), f32_tol=tol32, f32_err_rel=gap(card32, cpu32)
+               / float(cpu32.abs().max()), bf16_card_vs_cpu_f32=gap(card16, cpu32),
+               bf16_cpu_vs_cpu_f32=ref16, bf16_card_vs_cpu_bf16=gap(card16, cpu16),
+               finite=all(bool(torch.isfinite(r[0]).all()) for r in runs.values()))
+    check(out["finite"], f"11 {cfg.name}: non-finite logits")
+    check(out["f32_err"] <= tol32, f"11 {cfg.name}: f32 card vs CPU {out['f32_err']!r} > {tol32!r}")
+    check(out["bf16_card_vs_cpu_f32"] <= LM_BF16_FACTOR * ref16,
+          f"11 {cfg.name}: bf16 card {out['bf16_card_vs_cpu_f32']!r} from the CPU's f32 logits, "
+          f"more than {LM_BF16_FACTOR} x the CPU bf16 run's {ref16!r}")
+    # the card and the CPU run in one dtype differ by at most tol32 (f32) or
+    # (1 + LM_BF16_FACTOR) x ref16 (bf16), so a gap above that decides the token
+    for name, card, cpu, tol in (("f32", card32, cpu32, tol32),
+                                 ("bf16", card16, cpu16, (1 + LM_BF16_FACTOR) * ref16)):
+        top2 = cpu.topk(2, dim=-1).values
+        decisive = (top2[..., 0] - top2[..., 1]) > tol
+        agree = card.argmax(-1) == cpu.argmax(-1)
+        out[f"{name}_tokens_decisive"] = int(decisive.sum())
+        out[f"{name}_tokens_agree"] = int((agree & decisive).sum())
+        check(bool((agree | ~decisive).all()),
+              f"11 {cfg.name}: {name} greedy tokens differ where the CPU's top-2 gap > {tol!r}")
+    return out
+
+
+def lm_param_bytes(cfg) -> int:
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.models.transformer import build_model_defs
+
+    return sum(math.prod(d.shape) * d.dtype.itemsize
+               for _, d in tree_leaves(build_model_defs(cfg)))
+
+
+def lm_keys_per_layer(cfg, T: int) -> list[int]:
+    """Keys each layer's causal attention must read over a prompt of T
+    (sum over queries of the keys in reach: all before it, or the window)."""
+    out = []
+    for spec in cfg.layer_specs():
+        w = spec.window or T
+        out.append(sum(min(q + 1, w) for q in range(T)) if w < T else T * (T + 1) // 2)
+    return out
+
+
+def lm_bounds(cfg, B: int, T: int, steps: int) -> dict:
+    """The least time the card could take (ms): the prefill's operations at
+    989 TFLOP/s or its bytes (weights read once, the cache written once) at
+    3.35 TB/s, whichever is larger; one decode step's bytes (every weight
+    read once, the tied or untied head included, and each layer's cache up
+    to its length or window, at the steps' mean length) or operations."""
+    d, H, K, Dh, F, V = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_ff, cfg.vocab
+    mlp = (3 if cfg.act in ("swiglu", "geglu") else 2) * d * F
+    per_layer = 2 * d * H * Dh + 2 * d * K * Dh + mlp
+    w_bytes = lm_param_bytes(cfg)
+    item = 2
+    kv_tok = cfg.n_layers * 2 * K * Dh * item
+    attn = sum(4 * B * H * Dh * k for k in lm_keys_per_layer(cfg, T))
+    pre_ops = 2 * B * T * cfg.n_layers * per_layer + attn + 2 * B * d * V
+    pre_bytes = w_bytes + B * T * kv_tok
+    lens = [T + s + 1 for s in range(steps)]
+    kv_read = sum(sum(B * min(L, spec.window or L) * 2 * K * Dh * item
+                      for spec in cfg.layer_specs()) for L in lens) / len(lens)
+    dec_ops = 2 * B * (cfg.n_layers * per_layer + d * V) + sum(
+        sum(4 * B * H * Dh * min(L, spec.window or L) for spec in cfg.layer_specs())
+        for L in lens) / len(lens)
+    pre = max(pre_ops / PEAK_BF16_FLOPS, pre_bytes / PEAK_BYTES_PER_S) * 1e3
+    dec = max(dec_ops / PEAK_BF16_FLOPS, (w_bytes + kv_read) / PEAK_BYTES_PER_S) * 1e3
+    return dict(weight_bytes=w_bytes, prefill_flops=pre_ops, prefill_bound_ms=pre,
+                prefill_bound_by="operations" if pre_ops / PEAK_BF16_FLOPS
+                > pre_bytes / PEAK_BYTES_PER_S else "bytes",
+                decode_bytes=w_bytes + kv_read, decode_flops=dec_ops, decode_bound_ms=dec,
+                decode_bound_by="bytes" if (w_bytes + kv_read) / PEAK_BYTES_PER_S
+                > dec_ops / PEAK_BF16_FLOPS else "operations")
+
+
+def lm_serve(torch, smi: str, cfg, shape, label: str, cut: str | None = None, reps: int = 1,
+             profile: bool = False) -> dict:
+    """Serve ``shape`` = (B, T, new tokens) on the card, bf16, random weights
+    from a seed: a batched prefill, then new - 1 greedy decode steps (the
+    prefill gives the first token).  Host clock around each phase, ending
+    in a synchronise; ``reps`` times on the same weights, the first rep also
+    reading peak memory.  Every logit must be finite."""
+    from repro_torch.models import model as M
+
+    B, T, new = shape
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    tokens = torch.randint(0, cfg.vocab, (B, T), generator=torch.Generator(dev).manual_seed(1),
+                           device=dev)
+    prefill, serve = M.make_prefill_step(cfg, M.SHAPES["prefill_32k"]), M.make_serve_step(cfg)
+    runs = []
+    for rep in range(reps):
+        caches = M.init_caches(cfg, B, T + new, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, {"tokens": tokens}, caches)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        finite = torch.isfinite(logits).all()
+        tok = logits[:, -1].argmax(-1)[:, None]
+        t0 = time.perf_counter()
+        for _ in range(new - 1):
+            logits, caches = serve(params, {"token": tok}, caches)
+            finite &= torch.isfinite(logits).all()
+            tok = logits[:, -1].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        runs.append(dict(prefill_ms=t_pre * 1e3, prefill_tokens_per_s=B * T / t_pre,
+                         decode_ms_per_step=t_dec * 1e3 / (new - 1),
+                         decode_tokens_per_s=B * (new - 1) / t_dec,
+                         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         finite=bool(finite), cache_length=caches[0]["attn"].length))
+        check(runs[-1]["finite"], f"11 {label}: non-finite logits (rep {rep})")
+        check(runs[-1]["cache_length"] == T + new - 1, f"11 {label}: cache length "
+              f"{runs[-1]['cache_length']} != {T + new - 1}")
+    out = dict(phase="lm_serve", cell=label, card=smi, arch=cfg.name, n_layers=cfg.n_layers,
+               batch=B, prompt=T, new_tokens=new, decode_steps=new - 1, dtype="bfloat16", cut=cut,
+               kv_cache_gb=B * (T + new) * cfg.n_layers * 2 * cfg.n_kv_heads * cfg.d_head * 2 / 1e9,
+               runs=runs, **lm_bounds(cfg, B, T, new - 1))
+    if profile:
+        # 5 decode steps from the prompt's cache (rewound: positions T.. again)
+        from repro_torch.models.attention import AttnCache
+
+        rewound = [{"attn": AttnCache(c["attn"].k, c["attn"].v, T)} for c in caches]
+
+        def steps():
+            cs, t = rewound, tok
+            for _ in range(PROFILE_ITERS):
+                lg, cs = serve(params, {"token": t}, cs)
+                t = lg[:, -1].argmax(-1)[:, None]
+
+        out["profile"] = dict(decode_steps=PROFILE_ITERS, **profile_window(torch, steps))
+    del params, caches, logits
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def phase11(torch, smi: str, profile: bool = False) -> dict:
+    """11a-11e (module docstring): the dense LM serving path on the card,
+    held to the port's CPU run, then served at full width; none of it may
+    launch a kernel."""
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.param import init_tree
+    from repro_torch.models.transformer import build_model_defs
+
+    before = launch_counts()
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    out: dict = {}
+
+    # -- 11a: the four smoke configs, card against CPU ---------------------------
+    out["smoke"] = {}
+    for arch in LM_ARCHS:
+        cfg = get_smoke(arch)
+        tree = init_tree(build_model_defs(cfg), torch.Generator(dev).manual_seed(0), dev)
+        out["smoke"][arch] = lm_card_vs_cpu(torch, cfg, tree, LM_SMOKE, LM_F32_TOL["smoke"])
+        del tree
+    emit(dict(phase="lm_smoke_card_vs_cpu", card=smi, batch=LM_SMOKE[0], prompt=LM_SMOKE[1],
+              decode_steps=LM_SMOKE[2], **out["smoke"]))
+
+    # -- 11b: qwen2_1_5b at full width, card against CPU -------------------------
+    cfg = get_config("qwen2_1_5b")
+    tree = init_tree(build_model_defs(cfg), torch.Generator(dev).manual_seed(0), dev)
+    out["wide"] = lm_card_vs_cpu(torch, cfg, tree, LM_WIDE_CHECK, LM_F32_TOL["wide"])
+    del tree
+    torch.cuda.empty_cache()
+    emit(dict(phase="lm_full_width_card_vs_cpu", card=smi, arch=cfg.name, n_layers=cfg.n_layers,
+              batch=LM_WIDE_CHECK[0], prompt=LM_WIDE_CHECK[1], decode_steps=LM_WIDE_CHECK[2],
+              **out["wide"]))
+
+    # -- 11c-11e: serving at full width ------------------------------------------
+    out["serve"] = lm_serve(torch, smi, cfg, LM_SERVE, "serve_8x2048", reps=2, profile=profile)
+    out["long"] = lm_serve(torch, smi, cfg, LM_LONG, "prefill_decode_32k_batch1",
+                           cut="batch 32 (prefill_32k) and 128 (decode_32k) -> 1")
+    gemma = get_config("gemma3_12b")
+    gemma = dataclasses.replace(gemma, n_layers=len(gemma.period))
+    out["window"] = lm_serve(torch, smi, gemma, LM_WINDOW, "gemma3_one_period_4096",
+                             cut="depth 48 -> 6 (one period: 5 windowed layers, 1 global)")
+
+    after = launch_counts()
+    check(after == before, f"11: the LM runs launched kernels: {before} -> {after}")
+    out["kernel_launches"] = {k: after[k] - before[k] for k in after}
+    out["matmul_flags"] = dict(
+        allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        allow_bf16_reduced_precision_reduction=(
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction))
+    out["seconds"] = time.perf_counter() - t0
+    emit(dict(phase="lm_clock", card=smi, seconds=out["seconds"],
+              kernel_launches=out["kernel_launches"], matmul_flags=out["matmul_flags"]))
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2065,6 +2361,9 @@ def main(argv=None) -> int:
 
     # -- phase 10: the SIMPLE CFD application ----------------------------------
     record["cfd"] = phase10(torch, smi)
+
+    # -- phase 11: the LM serving path -----------------------------------------
+    record["lm"] = phase11(torch, smi, profile=args.profile)
 
     # -- the kernels line ------------------------------------------------------
     path_counts = {"paper_mesh": counts, "batched": counts5, "ref_fused": counts7}

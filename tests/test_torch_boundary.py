@@ -19,7 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 def _port_files():
     root = pathlib.Path(REPO)
-    return sorted((root / "src" / "repro_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    return sorted((root / "src" / "repro_torch").rglob("*.py")) + [
+        root / "chip_smoke.py", root / "examples" / "serve_lm_torch.py"]
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -49,6 +50,8 @@ def test_scan_covers_the_package():
     assert "src/repro_torch/launch/solve.py" in names
     assert {"src/repro_torch/launch/cfd.py", "src/repro_torch/checkpoint/manager.py",
             "src/repro_torch/runtime/runner.py", "src/repro_torch/apps/cfd/driver.py"} <= names
+    assert {"src/repro_torch/models/model.py", "src/repro_torch/configs/gemma3_12b.py",
+            "src/repro_torch/configs/stencil_box27.py", "examples/serve_lm_torch.py"} <= names
 
 
 def test_entry_point_loads_neither_package():
@@ -58,6 +61,9 @@ def test_entry_point_loads_neither_package():
         import repro_torch.kernels.fused_iter.ops
         import repro_torch.launch.cfd, repro_torch.core.simple_cfd
         import repro_torch.configs.cfd_scenarios, repro_torch.checkpoint, repro_torch.runtime
+        import repro_torch.models.model, repro_torch.configs.stencil_box27
+        from repro_torch.configs import all_configs
+        all_configs()
         print(json.dumps(sorted(m for m in sys.modules
                                 if m.split(".")[0] in %r)))
     """ % (FORBIDDEN,))
