@@ -170,6 +170,36 @@ Phases (one line of output each, JSON where it carries numbers):
    windowed at 1,024, 1 global) over 4,096 + 16 tokens.  Every logit of
    (c)-(e) must be finite.
 
+12. the multi-rank solve over ``torch.distributed``: the parent, whose
+   kernels are built, starts four ranks on this one card under ``torchrun
+   --nproc-per-node 4`` with the gloo backend (every slab and AllReduce
+   operand staged through the host; NCCL refuses two ranks on one card),
+   each on its block of a 2x2 fabric.  (a) ``global_apply``'s SpMV through
+   K1 and K1b (B = 0 and 3) at 48x48x32 and 608x608x1536 for star7 and at
+   256^3 for box27 and star25, f32 and bf16, in the blocking, overlap-split
+   and overlap-fused forms: every form the same bits on every rank, the
+   gathered output the one-rank K1 of the whole array bit for bit (inputs
+   from an integer hash of the global index, so no array crosses), and
+   per rank exactly 1, 1 + 4 ring slabs and 1 launches.  (b) The CLI at the
+   default cell, ``--backend fused``, f32, seeds 0-4: a true residual below
+   1e-5, gaps to the four-rank spmd solve within 8 and 2 on the mean, with
+   spmd-order dots the spmd solve bit for bit, per rank 1 + 3n AllReduces,
+   8n permutes and the split-ring launch counts.  (c) ``cs1_paper`` on the
+   four ranks, 30 iterations: finite residuals below 1, per rank K1 2 x (1 +
+   4) per iteration, K2-K4 1 each, K5 1 each and 2 at setup, its peak memory,
+   ms/iter and bytes staged through the host per iteration, recorded as four
+   gloo ranks sharing one card (not a speed of the system; no limit).  (f)
+   The same run with ``--autotune --obs --run-dir``: rank 0 sweeps (the
+   fused ring among the candidates) and writes the cache, the others hit
+   it; 12c's residuals bit for bit, the winner's launch counts, one bundle
+   naming the world, backend and rank-to-device map with every rank's
+   91 AllReduces and 240 permutes.  (e) The ``cavity_ghia`` cell on the 2x2
+   fabric passes the Ghia bands within 1e-3 of phase 10a's centerline and
+   launches no kernel.  (d) Phase 4's run under ``torchrun`` with one nccl
+   rank: phase 4's residuals and launch counts bit for bit.  A rank that
+   fails, or ranks that pass their time limit (killed as a process group),
+   fail the phase.
+
 ``--profile`` adds a torch.profiler trace of a few iterations of each
 measured path (phases 4, 5, 7 and 8b) and of 5 decode steps of 11c:
 device time by kernel and the card's idle share.
@@ -1810,6 +1840,7 @@ def phase10(torch, smi: str) -> dict:
                            centerline_gap=gap, centerline_min=min(card["centerline"]),
                            **fields)
         emit(dict(phase="cfd_ghia", card=smi, **out["ghia"]))
+        out["ghia"]["centerline"] = card["centerline"]      # phase 12e's yardstick
 
     # -- 10b: the other steady cells, and the cavity at bf16_mixed -------------
     out["cells"] = {}
@@ -2191,6 +2222,430 @@ def phase11(torch, smi: str, profile: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the multi-rank solve, four gloo ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+P12_WORLD = 4
+#: 12a: global_apply cases: (shape, spec); each in f32 and bf16, B = 0 and 3
+P12_APPLY = [(DEFAULT_MESH, "star7"), (PAPER_MESH, "star7"), (FAMILY_MESH, "box27"),
+             (FAMILY_MESH, "star25")]
+P12_BATCHES = (0, 3)
+#: the ranks' own time limit (a torchrun launch), and the world-of-1 run's
+P12_TIMEOUT, P12D_TIMEOUT = 480, 240
+#: the hash multipliers of :func:`hashed_field`, one per axis (batch first)
+_HASH = (73856093, 19349663, 83492791, 2654435761)
+
+
+def hashed_field(torch, shape, region, salt: int, dtype, device, scale: float):
+    """A field of global ``shape`` on the block ``region`` (one slice per
+    axis): values ``scale * (h % 65536 / 65536 - 1/2)`` from an integer hash
+    of the global index, so a rank makes its block and rank 0 the whole
+    array with the same bits, and no array crosses between them."""
+    idx = [torch.arange(s.start, s.stop, device=device, dtype=torch.int64)
+           for s in region]
+    out = torch.empty([len(i) for i in idx], dtype=dtype, device=device)
+    mults = _HASH[-len(shape):]
+    first = len(shape) - 3                      # chunks along the first mesh axis
+    for lo in range(0, len(idx[first]), 32):
+        h = torch.full((1,) * len(shape), salt * 40503, dtype=torch.int64, device=device)
+        for d, (i, m) in enumerate(zip(idx, mults)):
+            i = i[lo:lo + 32] if d == first else i
+            h = h ^ (i * m).reshape([-1 if e == d else 1 for e in range(len(shape))])
+        sl = (slice(None),) * first + (slice(lo, lo + 32),)
+        out[sl] = (((h % 65536).to(torch.float32) / 65536.0 - 0.5) * scale).to(dtype)
+    return out
+
+
+def p12_system(torch, shape, spec, dtype, nb: int, region, device):
+    """Coefficients (unit diagonal, each in +-1/n_offsets) and an iterate
+    of ``nb`` RHS (0: unbatched) on ``region`` of the global arrays."""
+    from repro_torch.core.stencil import StencilCoeffs
+
+    cf = StencilCoeffs({n: hashed_field(torch, shape, region, k + 1, dtype, device,
+                                        2.0 / spec.n_offsets)
+                        for k, n in enumerate(spec.names)})
+    vshape = ((nb,) if nb else ()) + tuple(shape)
+    vreg = ((slice(0, nb),) if nb else ()) + tuple(region)
+    return cf, hashed_field(torch, vshape, vreg, 99, dtype, device, 2.0)
+
+
+def p12_apply(torch, device) -> list[dict]:
+    """12a on every rank: the four-rank K1/K1b SpMV of each case in the
+    blocking, overlap-split and overlap-fused forms, their bits against
+    each other, and (on rank 0) the gathered output against the one-rank
+    K1 of the whole array."""
+    from repro_torch.core import dist, precision, stencil, tuning
+    from repro_torch.core.comm import BLOCKING, OVERLAP
+    from repro_torch.core.halo import FabricAxes, block_slices
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.stencil_nd.ops import fused_local_apply
+    from repro_torch.launch.mesh import make_mesh_for_devices
+
+    td = dist._td()
+    fabric = FabricAxes.from_mesh(make_mesh_for_devices(P12_WORLD))
+    rank = dist.rank()
+    recs = []
+    for shape, sname in P12_APPLY:
+        spec = stencil.get_spec(sname)
+        for pol in (precision.F32, precision.MIXED):
+            for nb in P12_BATCHES:
+                whole = tuple(slice(0, s) for s in shape)
+                want = None
+                if rank == 0:     # the one-rank K1 of the whole array: one launch
+                    cf, v = p12_system(torch, shape, spec, pol.storage, nb, whole, device)
+                    want = fused_local_apply(cf, v, FabricAxes(), policy=pol,
+                                             schedule=BLOCKING).cpu()
+                    del cf, v
+                    torch.cuda.empty_cache()
+                td.barrier()
+                mine = block_slices(fabric, shape)
+                cf, v = p12_system(torch, shape, spec, pol.storage, nb, mine, device)
+                ring = dataclasses.replace(tuning.default_config(
+                    spec, pol.storage, cf.shape, max(nb, 1)), fuse_ring=True)
+                forms, counts = {}, {}
+                for form, kw in (("blocking", dict(schedule=BLOCKING)),
+                                 ("overlap_split", dict(schedule=OVERLAP)),
+                                 ("overlap_fused", dict(schedule=OVERLAP, config=ring))):
+                    reset_launch_counts()
+                    forms[form] = fused_local_apply(cf, v, fabric, policy=pol, **kw)
+                    torch.cuda.synchronize()
+                    counts[form] = {k: n for k, n in launch_counts().items() if n}
+                same = all(torch.equal(forms[f], forms["blocking"]) for f in forms)
+                block = forms["blocking"].cpu()
+                del cf, v, forms
+                torch.cuda.empty_cache()
+                equal_whole = None
+                if rank == 0:
+                    pre = (slice(None),) * (1 if nb else 0)
+                    equal_whole = torch.equal(want[pre + mine], block)
+                    for r in range(1, P12_WORLD):
+                        buf = torch.empty_like(block)
+                        td.recv(buf.reshape(-1).view(torch.uint8), r)
+                        sl = block_slices(fabric.at_rank(r), shape)
+                        equal_whole = equal_whole and torch.equal(want[pre + sl], buf)
+                        del buf
+                else:
+                    td.send(block.reshape(-1).view(torch.uint8), 0)
+                del want, block
+                recs.append(dict(shape=list(shape), spec=sname, policy=pol.name, nrhs=nb,
+                                 forms_equal=same, equal_one_rank=equal_whole,
+                                 launches=counts))
+    return recs
+
+
+def p12_dot_order(torch, device, seed: int) -> bool:
+    """12b: the default cell's f32 solve across the ranks through spmd and
+    through the kernels with spmd-order dots: the same bits on every rank."""
+    from repro_torch.core import bicgstab, dist, precision, stencil
+    from repro_torch.core.halo import FabricAxes, local_apply
+    from repro_torch.core.operator import make_operator
+    from repro_torch.core.solvers import get_solver
+    from repro_torch.launch import solve
+    from repro_torch.launch.mesh import make_mesh_for_devices
+
+    mesh = make_mesh_for_devices(P12_WORLD)
+    fabric = FabricAxes.from_mesh(mesh)
+    f32 = precision.F32
+    _, cf, xt = solve.rank_system(None, stencil.STAR7, DEFAULT_MESH, fabric, seed=seed,
+                                  device=device)
+    b = local_apply(cf, xt, fabric, policy=f32)
+    spmd = bicgstab.solve_block(mesh, cf, b, tol=1e-6, maxiter=200, policy=f32,
+                                backend="spmd")
+    op = with_spmd_dots(make_operator("fused", cf, fabric, policy=f32))
+    fused = get_solver("bicgstab")(op, b, None, tol=1e-6, maxiter=200, policy=f32)
+    same = (torch.equal(spmd.x, fused.x) and int(spmd.iterations) == int(fused.iterations))
+    return all(dist.all_gather_object(bool(same)))
+
+
+def p12_cli(argv) -> tuple[dict, dict]:
+    """The solve CLI in this rank, its lines kept off the output."""
+    res, counts = run_cli_quiet(argv + ["--dist-backend", "gloo"])
+    return res, {k: n for k, n in counts.items() if n}
+
+
+def p12_rank_part(torch, device, out_dir: Path) -> dict:
+    """Everything phase 12 runs on each of four gloo ranks (12a, b, c, e, f)."""
+    import os
+
+    from repro_torch.kernels import launch_counts
+
+    out: dict = {}
+    t0 = time.perf_counter()
+    out["apply"] = p12_apply(torch, device)
+    out["apply_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    runs = []
+    for seed in range(PHASE3_SEEDS):
+        fused, fc = p12_cli(["--backend", "fused", "--policy", "f32", "--seed", str(seed)])
+        spmd, _ = p12_cli(["--backend", "spmd", "--policy", "f32", "--seed", str(seed)])
+        runs.append(dict(seed=seed, fused=fused, spmd=spmd, launches=fc,
+                         spmd_order_dots_equal=p12_dot_order(torch, device, seed)))
+    out["cli"] = runs
+    out["cli_s"] = time.perf_counter() - t0
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = [str(s) for s in PAPER_MESH]
+    res, counts = p12_cli(["--mesh", *mesh, "--backend", "fused", "--policy", "bf16_mixed",
+                           "--tol", "0", "--maxiter", str(MAIN_ITERS)])
+    res.update(launches=counts, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    out["paper_mesh"] = res
+    torch.cuda.empty_cache()
+
+    # 12f: --autotune across the ranks (rank 0 sweeps and writes, the others
+    # look its entry up), then a run that every rank finds in the cache, with
+    # --obs (rank 0 writes the bundle); its launches are the solve's alone
+    os.environ["REPRO_TORCH_TUNING_CACHE"] = str(out_dir / "tuning_cache.json")
+    flags = ["--mesh", *mesh, "--backend", "fused", "--policy", "bf16_mixed", "--tol", "0",
+             "--maxiter", str(MAIN_ITERS), "--autotune"]
+    sweep, _ = p12_cli(flags)
+    res, counts = p12_cli(flags + ["--obs", "--run-dir", str(out_dir / "bundle")])
+    keep = ("iterations", "rel_residual", "true_rel_residual", "ms_per_iter")
+    out["autotune"] = dict(launches=counts, cache_hit=res["autotune"]["cache_hit"],
+                           sweep_cache_hit=sweep["autotune"]["cache_hit"],
+                           config=sweep["autotune"]["config"],
+                           speedup_vs_default=sweep["autotune"].get("speedup_vs_default"),
+                           n_candidates=sweep["autotune"].get("n_candidates"),
+                           sweep_run={k: sweep[k] for k in keep},
+                           collectives=res["collectives"], **{k: res[k] for k in keep})
+    del os.environ["REPRO_TORCH_TUNING_CACHE"]
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    before = launch_counts()
+    ghia = run_cfd_quiet(cell_flags("cavity_ghia") + CFD_STEADY + ["--dist-backend", "gloo"])
+    after = launch_counts()
+    out["ghia"] = dict(steady_summary(ghia), centerline=ghia.get("centerline"),
+                       kernel_launches={k: after[k] - before[k] for k in after if
+                                        after[k] != before[k]},
+                       seconds=time.perf_counter() - t0)
+    return out
+
+
+def p12_world_of_one(torch, device) -> dict:
+    """12d: phase 4's run under torchrun with one nccl rank."""
+    res, counts = run_cli_quiet(["--mesh", *(str(s) for s in PAPER_MESH), "--backend",
+                                 "fused", "--policy", "bf16_mixed", "--tol", "0",
+                                 "--maxiter", str(MAIN_ITERS), "--dist-backend", "nccl"])
+    return dict(res, launches=counts)
+
+
+def rank_main(part: str, out_dir: Path) -> int:
+    """One rank of a phase-12 launch (``torchrun ... chip_smoke.py --rank-part
+    PART --rank-out DIR``): joins the group, runs its part, writes
+    ``DIR/rank<r>.json``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import dist
+
+    device = dist.init("nccl" if part == "world_of_one" else "gloo", device_type="cuda")
+    rank = dist.rank()
+    rec = (p12_world_of_one(torch, device) if part == "world_of_one"
+           else p12_rank_part(torch, device, out_dir))
+    rec.update(rank=rank, device=str(device), failures=failures)
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(rec, default=str))
+    dist.shutdown()
+    return 1 if failures else 0
+
+
+def launch_ranks(part: str, nproc: int, timeout: int) -> tuple[list[dict], Path]:
+    """``torchrun --standalone --nproc-per-node nproc chip_smoke.py`` for one
+    part, in its own process group (killed whole at the time limit); every
+    rank's record (or a failure), and the directory the ranks wrote to."""
+    import os
+    import signal
+    import tempfile
+
+    out_dir = Path(tempfile.mkdtemp(prefix=f"phase12_{part}_"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={nproc}", str(ROOT / "chip_smoke.py"), "--rank-part", part,
+           "--rank-out", str(out_dir)]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        log, _ = proc.communicate()
+        check(False, f"12 {part}: the ranks passed the {timeout} s limit: {log[-1500:]}")
+        return [], out_dir
+    recs = [json.loads((out_dir / f"rank{r}.json").read_text())
+            for r in range(nproc) if (out_dir / f"rank{r}.json").exists()]
+    check(proc.returncode == 0 and len(recs) == nproc,
+          f"12 {part}: torchrun exited {proc.returncode} with {len(recs)} of {nproc} "
+          f"records: {log[-3000:]}")
+    for rec in recs:
+        for f in rec.get("failures", []):
+            check(False, f"12 {part} rank {rec['rank']}: {f}")
+    return recs, out_dir
+
+
+def p12_expected(iters: int, ring_patches: int) -> dict:
+    """A rank's launches over ``iters`` fused iterations with a split ring of
+    ``ring_patches`` slabs per SpMV."""
+    counts = {k: n for k, n in expected_counts(iters).items() if n}
+    counts["stencil_nd"] = 2 * iters * (1 + ring_patches)
+    return counts
+
+
+def phase12(torch, smi: str, phase4: dict, ghia_centerline) -> dict:
+    """12a-e (module docstring): four gloo ranks sharing this card, then
+    one nccl rank."""
+    t0 = time.perf_counter()
+    label = "4 gloo ranks sharing one card"
+    out: dict = dict(label=label, card=smi)
+    torch.cuda.empty_cache()
+    recs, out_dir = launch_ranks("ranks", P12_WORLD, P12_TIMEOUT)
+    if len(recs) == P12_WORLD:
+        r0 = recs[0]
+        # 12a: bits and per-rank launches of every form
+        for i, case in enumerate(r0["apply"]):
+            what = f"12a {case['spec']} {case['shape']} {case['policy']} B={case['nrhs']}"
+            check(case["equal_one_rank"], f"{what}: the gathered SpMV differs from the "
+                                          f"one-rank K1's bits")
+            kern = "stencil_nd_batched" if case["nrhs"] else "stencil_nd"
+            want = {"blocking": {kern: 1}, "overlap_split": {kern: 5},
+                    "overlap_fused": {kern: 1}}
+            for rec in recs:
+                c = rec["apply"][i]
+                check(c["forms_equal"], f"{what} rank {rec['rank']}: the schedules and ring "
+                                        f"forms differ")
+                check(c["launches"] == want, f"{what} rank {rec['rank']}: launches "
+                                             f"{c['launches']} != {want}")
+        out["apply"] = [dict(c, launches_per_rank=[rec["apply"][i]["launches"] for rec in recs])
+                        for i, c in enumerate(r0["apply"])]
+        emit(dict(phase="ranks_apply", label=label, card=smi, seconds=r0["apply_s"],
+                  cases=[{k: c[k] for k in ("shape", "spec", "policy", "nrhs",
+                                            "equal_one_rank", "forms_equal")}
+                         for c in out["apply"]]))
+
+        # 12b: the CLI at the default cell, seeds 0-4
+        runs = []
+        for s, run in enumerate(r0["cli"]):
+            fused, spmd = run["fused"], run["spmd"]
+            n = fused["iterations"]
+            check(fused["converged"] and fused["true_rel_residual"] < 1e-5,
+                  f"12b seed {s}: fused {fused['converged']}, true rel-residual "
+                  f"{fused['true_rel_residual']!r}")
+            check(run["spmd_order_dots_equal"], f"12b seed {s}: spmd-order dots differ from "
+                                                f"the spmd solve")
+            for rec in recs:
+                c = rec["cli"][s]["fused"]["collectives"]
+                check(c == {"allreduce_total": 1 + 3 * n, "ppermute_total": 8 * n},
+                      f"12b seed {s} rank {rec['rank']}: collectives {c}, n={n}")
+                check(rec["cli"][s]["launches"] == p12_expected(n, 4),
+                      f"12b seed {s} rank {rec['rank']}: launches {rec['cli'][s]['launches']}")
+            runs.append(dict(seed=s, fused_iterations=n, spmd_iterations=spmd["iterations"],
+                             fused_true_rel_residual=fused["true_rel_residual"],
+                             spmd_true_rel_residual=spmd["true_rel_residual"],
+                             fused_ms_per_iter=fused["ms_per_iter"],
+                             spmd_ms_per_iter=spmd["ms_per_iter"],
+                             collectives=fused["collectives"],
+                             spmd_order_dots_equal=run["spmd_order_dots_equal"]))
+        gaps = gap_check("12b fused vs spmd on 4 ranks",
+                         [r["fused_iterations"] - r["spmd_iterations"] for r in runs],
+                         SEED_GAP, mean=MEAN_GAP)
+        out["cli"] = dict(runs=runs, **gaps)
+        emit(dict(phase="ranks_cli", label=label, card=smi, seconds=r0["cli_s"], **out["cli"]))
+
+        # 12c: cs1_paper across the ranks
+        pm = [rec["paper_mesh"] for rec in recs]
+        res = pm[0]
+        finite = all(math.isfinite(res[k]) for k in ("rel_residual", "true_rel_residual"))
+        check(finite and res["rel_residual"] < 1 and res["true_rel_residual"] < 1,
+              f"12c residuals {res['rel_residual']!r}, {res['true_rel_residual']!r}")
+        want = p12_expected(MAIN_ITERS, 4)
+        for rec, p in zip(recs, pm):
+            check(p["launches"] == want, f"12c rank {rec['rank']}: launches {p['launches']} "
+                                         f"!= {want}")
+        out["paper_mesh"] = dict(
+            iterations=res["iterations"], rel_residual=res["rel_residual"],
+            true_rel_residual=res["true_rel_residual"],
+            ms_per_iter=[p["ms_per_iter"] for p in pm],
+            host_staged_bytes_per_iter=[p["host_staged_bytes"] / MAIN_ITERS for p in pm],
+            peak_memory_gb=[p["peak_memory_gb"] for p in pm],
+            launches_per_rank=[p["launches"] for p in pm],
+            collectives=res["collectives"], setup_s=res["system_s"],
+            phase4_ms_per_iter=phase4["ms_per_iter"])
+        emit(dict(phase="ranks_paper_mesh", label=label, card=smi, **out["paper_mesh"]))
+
+        # 12f: --autotune and --obs across the ranks
+        tuned = [rec["autotune"] for rec in recs]
+        t0f = tuned[0]
+        check([t["sweep_cache_hit"] for t in tuned] == [False] + [True] * (P12_WORLD - 1),
+              f"12f: rank 0 must sweep and the others hit its entry: "
+              f"{[t['sweep_cache_hit'] for t in tuned]}")
+        check(all(t["cache_hit"] for t in tuned), f"12f: the second run must hit the cache "
+                                                  f"on every rank")
+        check(all(t["config"] == t0f["config"] for t in tuned), f"12f: configs differ: "
+                                                               f"{[t['config'] for t in tuned]}")
+        for run in (t0f["sweep_run"], t0f):
+            check(all(run[k] == res[k] for k in ("iterations", "rel_residual",
+                                                 "true_rel_residual")),
+                  f"12f: a tuned solve's residuals {run['rel_residual']!r}, "
+                  f"{run['true_rel_residual']!r} differ from 12c's")
+        fused_ring = bool(t0f["config"].get("fuse_ring"))
+        want_f = p12_expected(MAIN_ITERS, 0 if fused_ring else 4)
+        for rec, t in zip(recs, tuned):
+            check(t["launches"] == want_f, f"12f rank {rec['rank']}: launches {t['launches']} "
+                                           f"!= {want_f}")
+        bundle = out_dir / "bundle"
+        files = sorted(p.name for p in bundle.iterdir()) if bundle.is_dir() else []
+        man = json.loads((bundle / "manifest.json").read_text()) if files else {}
+        events = read_jsonl(bundle / "events.jsonl") if files else []
+        coll = [e for e in events if e.get("event") == "collectives"]
+        want_c = {"allreduce_total": 1 + 3 * MAIN_ITERS, "ppermute_total": 8 * MAIN_ITERS}
+        check(files == ["events.jsonl", "manifest.json", "trace.json"], f"12f bundle: {files}")
+        check(man.get("dist", {}).get("world_size") == P12_WORLD
+              and man["dist"].get("backend") == "gloo"
+              and man["dist"].get("rank_devices") == ["cuda:0"] * P12_WORLD,
+              f"12f manifest dist: {man.get('dist')}")
+        check(len(coll) == 1 and coll[0].get("per_rank") == [want_c] * P12_WORLD,
+              f"12f collectives events: {coll}")
+        out["autotune"] = dict(per_rank=tuned, fused_ring=fused_ring, bundle_files=files,
+                               manifest_dist=man.get("dist"),
+                               collectives=coll[0] if coll else None)
+        emit(dict(phase="ranks_autotune_obs", label=label, card=smi, config=t0f["config"],
+                  speedup_vs_default=t0f["speedup_vs_default"],
+                  n_candidates=t0f["n_candidates"],
+                  ms_per_iter=[t["ms_per_iter"] for t in tuned],
+                  sweep_ms_per_iter=[t["sweep_run"]["ms_per_iter"] for t in tuned],
+                  fused_ring=fused_ring,
+                  manifest_dist=man.get("dist")))
+
+        # 12e: the Ghia cavity on a 2x2 fabric
+        g = r0["ghia"]
+        gap = (max(abs(a - b) for a, b in zip(g["centerline"], ghia_centerline))
+               if g.get("centerline") and ghia_centerline else float("inf"))
+        check(bool(g.get("converged")) and bool(g.get("ghia_ok")), f"12e: {g}")
+        check(gap <= 1e-3, f"12e: centerline {gap!r} from phase 10a's one-rank card run")
+        check(not g["kernel_launches"], f"12e: the CFD ranks launched {g['kernel_launches']}")
+        out["ghia"] = dict({k: v for k, v in g.items() if k != "centerline"},
+                           centerline_gap=gap)
+        emit(dict(phase="ranks_cfd_ghia", label=label, card=smi, **out["ghia"]))
+
+    # 12d: a world of one under nccl is phase 4 bit for bit
+    one, _ = launch_ranks("world_of_one", 1, P12D_TIMEOUT)
+    if one:
+        res = one[0]
+        same = all(res[k] == phase4[k] for k in ("iterations", "rel_residual",
+                                                 "true_rel_residual"))
+        check(same, f"12d: a world of one under nccl gave {res['rel_residual']!r}, "
+                    f"{res['true_rel_residual']!r}; phase 4 {phase4['rel_residual']!r}, "
+                    f"{phase4['true_rel_residual']!r}")
+        check(res["launches"] == phase4["launches"], f"12d: launches {res['launches']}")
+        out["world_of_one"] = dict(same_as_phase4=same, ms_per_iter=res["ms_per_iter"],
+                                   rel_residual=res["rel_residual"],
+                                   true_rel_residual=res["true_rel_residual"])
+        emit(dict(phase="world_of_one_nccl", card=smi, **out["world_of_one"]))
+    out["seconds"] = time.perf_counter() - t0
+    emit(dict(phase="ranks_clock", label=label, card=smi, seconds=out["seconds"]))
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2202,12 +2657,17 @@ def main(argv=None) -> int:
                          "torch.profiler")
     ap.add_argument("--out", type=Path, default=Path("build/chip_smoke.json"),
                     help="where the full JSON record goes (relative to the checkout)")
+    ap.add_argument("--rank-part", choices=["ranks", "world_of_one"],
+                    help=argparse.SUPPRESS)      # phase 12's torchrun ranks
+    ap.add_argument("--rank-out", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test needs a GPU",
               file=sys.stderr)
         return 2
+    if args.rank_part:
+        return rank_main(args.rank_part, args.rank_out)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
 
@@ -2364,6 +2824,10 @@ def main(argv=None) -> int:
 
     # -- phase 11: the LM serving path -----------------------------------------
     record["lm"] = phase11(torch, smi, profile=args.profile)
+
+    # -- phase 12: the multi-rank solve, four gloo ranks on this card ----------
+    record["ranks"] = phase12(torch, smi, record["paper_mesh"],
+                              record["cfd"].get("ghia", {}).get("centerline"))
 
     # -- the kernels line ------------------------------------------------------
     path_counts = {"paper_mesh": counts, "batched": counts5, "ref_fused": counts7}

@@ -12,9 +12,16 @@ stencil solve.
 The 2D fields have no CUDA kernel, as the reference's have no Pallas kernel:
 the inner solves run the plain tensor ops of ``reference``/``spmd`` on
 whatever device the fields are on, and the ``fused`` backend is refused.
-This slice runs on one rank: formation reads the zero-padded halo (the wall
-value), every reduction is the identity, and a mesh of more ranks raises
-until the ``torch.distributed`` exchange lands.
+
+Distribution: with a mesh of more ranks (a 2D fabric that divides ``n``)
+every rank runs the whole outer iteration on its block, as the reference's
+``shard_map`` body does: formation reads its neighbours' faces through
+depth-1 halo exchanges (with corners for the cross-velocity reads), the
+inner solves exchange halos and AllReduce their dots, and the residual
+maxima and the channel's outlet flux are AllReduces (``core/dist.py``).
+Each block knows its offset ``(ox, oy)`` in the grid from its coordinates.
+On one rank formation reads the zero-padded halo (the wall value) and every
+reduction is the identity.
 
 Transient mode adds the implicit-Euler inertial term and marches
 checkpointed time steps through ``checkpoint.CheckpointManager`` +
@@ -37,7 +44,8 @@ from repro_torch.apps.cfd.momentum import (
     AP_FLOOR, divide, form_u_system, form_v_system, window,
 )
 from repro_torch.apps.cfd.pressure import divergence, form_pressure_system
-from repro_torch.core.halo import FabricAxes, gather_halo
+from repro_torch.core import dist
+from repro_torch.core.halo import FabricAxes, gather_blocks, gather_halo, local_block
 from repro_torch.core.operator import BACKENDS, make_operator
 from repro_torch.core.precond import PrecondConfig, build_precond
 from repro_torch.core.solvers import get_solver
@@ -88,21 +96,14 @@ def _reduce_names(fabric: FabricAxes) -> tuple[str, ...]:
                  if a is not None and k > 1)
 
 
-def _one_rank(names: tuple[str, ...]) -> None:
-    if names:
-        raise NotImplementedError("multi-rank reductions (torch.distributed): next slice")
-
-
 def _pmax(x, names):
-    """The fabric-wide max: the identity on one rank."""
-    _one_rank(names)
-    return x
+    """The fabric-wide max (an AllReduce); the identity on one rank."""
+    return dist.all_reduce_max(x) if names else x
 
 
 def _psum(x, names):
-    """The fabric-wide sum: the identity on one rank."""
-    _one_rank(names)
-    return x
+    """The fabric-wide sum (an AllReduce); the identity on one rank."""
+    return dist.all_reduce_sum(x) if names else x
 
 
 def _system_coeffs(opts: SolverOptions, policy, system, b):
@@ -241,6 +242,45 @@ def _validate(cfg: CFDConfig, opts: SolverOptions, mesh) -> None:
             "backend='spmd' on a multi-rank mesh")
 
 
+def _rank_step(cfg: CFDConfig, opts: SolverOptions, mesh, *, form_only: bool = False):
+    """``(step, fabric)``: one SIMPLE outer iteration on this rank's blocks,
+    and the fabric it runs on (None on one rank, where a block is the whole
+    grid)."""
+    _validate(cfg, opts, mesh)
+    pconf = opts.precond_config()
+    if mesh is None or opts.backend == "reference" or mesh.size == 1:
+        fabric = FabricAxes()
+
+        def step(u, v, p, u_t, v_t):
+            return _step_local(cfg, opts, pconf, fabric, _reduce_names(fabric), u, v, p,
+                               u_t, v_t, 0, 0, form_only=form_only)
+
+        return step, None
+    fabric = FabricAxes.from_mesh(mesh)
+    if fabric.nz > 1:
+        raise ValueError("the 2D CFD app needs a 2D fabric (no pod axis)")
+    if cfg.n % fabric.nx or cfg.n % fabric.ny:
+        raise ValueError(f"n={cfg.n} must divide the fabric {fabric.nx}x{fabric.ny}")
+    dist.check_fabric(fabric.size)
+    bx, by = cfg.n // fabric.nx, cfg.n // fabric.ny
+    ox, oy = fabric.coords[0] * bx, fabric.coords[1] * by
+    red = _reduce_names(fabric)
+
+    def step(u, v, p, u_t, v_t):
+        return _step_local(cfg, opts, pconf, fabric, red, u, v, p, u_t, v_t, ox, oy,
+                           form_only=form_only)
+
+    return step, fabric
+
+
+def _blocks(fabric: FabricAxes | None, *fields):
+    return fields if fabric is None else tuple(local_block(f, fabric) for f in fields)
+
+
+def _gathered(fabric: FabricAxes | None, *fields):
+    return fields if fabric is None else tuple(gather_blocks(f, fabric) for f in fields)
+
+
 def make_step_fn(cfg: CFDConfig, opts: SolverOptions = SolverOptions(),
                  mesh=None, *, form_only: bool = False):
     """One SIMPLE outer iteration as a plain callable.
@@ -249,20 +289,21 @@ def make_step_fn(cfg: CFDConfig, opts: SolverOptions = SolverOptions(),
     on cell-shaped fields (``u_t``/``v_t`` are the previous time level,
     ignored when ``cfg.dt is None`` — pass the current fields); with
     ``form_only`` it forms all three systems and returns their checksum.
-    It runs on the fields' device.  A mesh of more than one rank raises
-    until the ``torch.distributed`` slice lands.
+    It runs on the fields' device.  With a mesh of more ranks the fields
+    are global: every rank takes its block, and the new fields are gathered
+    back to every rank.
     """
-    _validate(cfg, opts, mesh)
-    pconf = opts.precond_config()
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError("multi-rank SIMPLE step (torch.distributed): next slice")
-    fabric = FabricAxes()
+    step, fabric = _rank_step(cfg, opts, mesh, form_only=form_only)
+    if fabric is None:
+        return step
 
-    def step(u, v, p, u_t, v_t):
-        return _step_local(cfg, opts, pconf, fabric, _reduce_names(fabric), u, v, p,
-                           u_t, v_t, 0, 0, form_only=form_only)
+    def global_step(u, v, p, u_t, v_t):
+        out = step(*_blocks(fabric, u, v, p, u_t, v_t))
+        if form_only:
+            return out
+        return (*_gathered(fabric, *out[:3]), *out[3:])
 
-    return step
+    return global_step
 
 
 # ---------------------------------------------------------------------------
@@ -274,8 +315,8 @@ def solve_steady(cfg: CFDConfig, opts: SolverOptions = SolverOptions(),
     """Run SIMPLE to convergence on ``device`` (the card unless the caller
     asks for the CPU); returns cell-shaped (u, v, p, history)."""
     cfg = dataclasses.replace(cfg, dt=None)
-    u, v, p = cell_state(cfg, device=resolve_device(device))
-    step = make_step_fn(cfg, opts, mesh)
+    step, fabric = _rank_step(cfg, opts, mesh)
+    u, v, p = _blocks(fabric, *cell_state(cfg, device=resolve_device(device)))
     history = []
     for i in range(cfg.outer_iters):
         with obs_trace.span("cfd.outer", i=i, solver=opts.solver,
@@ -292,6 +333,7 @@ def solve_steady(cfg: CFDConfig, opts: SolverOptions = SolverOptions(),
                       outer_iterations=len(history),
                       continuity_res=history[-1] if history else None,
                       converged=bool(history and history[-1] < cfg.tol))
+    u, v, p = _gathered(fabric, u, v, p)
     return u, v, p, history
 
 
@@ -330,9 +372,9 @@ def measure_solve_share(cfg: CFDConfig, opts: SolverOptions, mesh, state, *,
     split lands in the observability registry (``cfd.solve_share`` /
     ``cfd.form_share`` gauges plus a ``cfd_solve_share`` event).
     """
-    u, v, p = state
-    step = make_step_fn(cfg, opts, mesh)
-    form = make_step_fn(cfg, opts, mesh, form_only=True)
+    step, fabric = _rank_step(cfg, opts, mesh)
+    form = _rank_step(cfg, opts, mesh, form_only=True)[0]
+    u, v, p = _blocks(fabric, *state)
 
     def timed(fn):
         fn(u, v, p, u, v)                 # warm: allocator, library handles
@@ -393,12 +435,14 @@ class _StepStream:
 
 def make_transient_step(cfg: CFDConfig, tcfg: TransientConfig,
                         opts: SolverOptions = SolverOptions(), mesh=None):
-    """``timestep(state) -> (state, metrics)`` advancing one dt."""
+    """``timestep(state) -> (state, metrics)`` advancing one dt (on global
+    fields; with a mesh of more ranks each rank marches its block and the
+    state is gathered back after the step)."""
     cfg = dataclasses.replace(cfg, dt=tcfg.dt)
-    step = make_step_fn(cfg, opts, mesh)
+    step, fabric = _rank_step(cfg, opts, mesh)
 
     def timestep(state):
-        u, v, p = state
+        u, v, p = _blocks(fabric, *state)
         u_t, v_t = u, v
         res = mres = torch.zeros((), dtype=torch.float32, device=u.device)
         with obs_trace.span("cfd.timestep",
@@ -410,7 +454,7 @@ def make_transient_step(cfg: CFDConfig, tcfg: TransientConfig,
             res = sp.block(res)
         obs_metrics.counter("cfd.timesteps").inc()
         obs_metrics.gauge("cfd.continuity_res").set(float(res))
-        return (u, v, p), {"continuity": res, "mom_res_u": mres}
+        return _gathered(fabric, u, v, p), {"continuity": res, "mom_res_u": mres}
 
     return timestep
 
@@ -431,6 +475,10 @@ def run_transient(cfg: CFDConfig, tcfg: TransientConfig,
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.runtime import FaultTolerantRunner, RunnerConfig
 
+    if checkpoint_dir is not None and dist.world_size() > 1:
+        raise NotImplementedError(
+            "a checkpointed march runs on one rank: every rank would write the same "
+            "checkpoint directory; drop --checkpoint-dir or torchrun")
     timestep = make_transient_step(cfg, tcfg, opts, mesh)
     state = cell_state(cfg, device=resolve_device(device))
 

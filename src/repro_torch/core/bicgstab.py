@@ -5,8 +5,11 @@ Counterpart of ``repro/core/bicgstab.py``:
 * :func:`solve_ref`: single-address-space solve (the oracle; with
   ``backend="fused"`` the same solve through the kernels);
 * :func:`solve_distributed`: the paper's run, every rank executing the whole
-  Krylov iteration on its block.  This slice runs it on the one-rank fabric;
-  a mesh with more ranks raises until the ``torch.distributed`` slice lands;
+  Krylov iteration on its block, on global arrays (each rank takes its
+  block by its fabric coordinates, and ``x`` is gathered back);
+* :func:`solve_block`: the same solve on this rank's block alone, so that
+  no rank but the one drawing a system ever holds the global arrays (the
+  CLI's entry);
 * :func:`make_iteration_fn`: one BiCGStab iteration as a plain function
   (the unit the paper measures);
 * :func:`solve_refined`: 16-bit inner solves with f32 iterative refinement;
@@ -20,10 +23,15 @@ iteration counts and ``[B]`` results.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from repro_torch.core import dist
 from repro_torch.core.comm import get_schedule
-from repro_torch.core.halo import FabricAxes, global_apply
+from repro_torch.core.halo import (
+    FabricAxes, gather_blocks, global_apply, local_block, local_coeffs,
+)
 from repro_torch.core.operator import make_operator
 from repro_torch.core.precision import F32, MIXED, Policy
 from repro_torch.core.precond import PrecondConfig, build_precond, get_precond_config
@@ -59,26 +67,30 @@ def cg_ref(coeffs: StencilCoeffs, b: torch.Tensor, **kw) -> SolveResult:
     return solve_ref(coeffs, b, solver="cg", **{k: v for k, v in kw.items() if k != "x0"})
 
 
-def solve_distributed(mesh, coeffs: StencilCoeffs, b: torch.Tensor,
-                      x0: torch.Tensor | None = None, *, tol: float = 1e-6,
-                      maxiter: int = 200, policy: Policy = MIXED,
-                      fused_reductions: bool = True, schedule: str | None = None, record_history: bool = False,
-                      solver: str = "bicgstab", backend: str = "spmd",
-                      precond: str | PrecondConfig | None = None) -> SolveResult:
-    """A Krylov solve with the whole iteration on every rank of ``mesh``.
+def _refuse_reference(backend: str, fabric: FabricAxes) -> None:
+    if backend == "reference" and fabric.size > 1:
+        # the reference backend has no halo exchange and local-only dots:
+        # each rank would silently solve an unrelated zero-Dirichlet block
+        raise ValueError(
+            "backend='reference' is single-address-space only; use backend='spmd' or "
+            "'fused' on a multi-rank mesh (or solve_ref on the undistributed arrays)")
 
-    ``schedule`` ("blocking" | "overlap") picks the halo schedule.
-    ``fused_reductions=False`` is the paper's one AllReduce per dot.
 
-    ``x0=None`` starts from zero without an SpMV.  The JAX package's
-    ``solve_distributed`` passes a zero warm start instead and forms
-    ``r0 = b - A 0``, which is ``b`` bit for bit, so the solve is the same
-    with one kernel launch less.
-    """
+def solve_block(mesh, coeffs: StencilCoeffs, b: torch.Tensor,
+                x0: torch.Tensor | None = None, *, tol: float = 1e-6,
+                maxiter: int = 200, policy: Policy = MIXED,
+                fused_reductions: bool = True, schedule: str | None = None,
+                record_history: bool = False, solver: str = "bicgstab",
+                backend: str = "spmd",
+                precond: str | PrecondConfig | None = None) -> SolveResult:
+    """The Krylov solve on this rank's block of the system: ``coeffs``,
+    ``b`` and ``x0`` are the rank's own blocks, and ``x`` comes back as
+    its block.  The result's scalars are the same on every rank (every
+    reduction is an AllReduce).  On the one-rank mesh the block is the
+    whole system."""
     sched = get_schedule(schedule)
     fabric = FabricAxes.from_mesh(mesh)
-    if fabric.size > 1:
-        raise NotImplementedError("multi-rank solve (torch.distributed): next slice")
+    _refuse_reference(backend, fabric)
     _check_rhs(coeffs, b)
     cf = coeffs.astype(policy.storage)
     op = make_operator(backend, cf, fabric, policy=policy, schedule=sched,
@@ -88,25 +100,56 @@ def solve_distributed(mesh, coeffs: StencilCoeffs, b: torch.Tensor,
                               record_history=record_history, precond=M)
 
 
+def solve_distributed(mesh, coeffs: StencilCoeffs, b: torch.Tensor,
+                      x0: torch.Tensor | None = None, *, tol: float = 1e-6,
+                      maxiter: int = 200, policy: Policy = MIXED,
+                      fused_reductions: bool = True, schedule: str | None = None, record_history: bool = False,
+                      solver: str = "bicgstab", backend: str = "spmd",
+                      precond: str | PrecondConfig | None = None) -> SolveResult:
+    """A Krylov solve with the whole iteration on every rank of ``mesh``,
+    on global arrays: every rank takes its block by its coordinates, runs
+    :func:`solve_block`, and ``x`` is gathered back to every rank.
+
+    ``schedule`` ("blocking" | "overlap") picks the halo schedule.
+    ``fused_reductions=False`` is the paper's one AllReduce per dot.
+
+    ``x0=None`` starts from zero without an SpMV.  The JAX package's
+    ``solve_distributed`` passes a zero warm start instead and forms
+    ``r0 = b - A 0``, which is ``b`` bit for bit, so the solve is the same
+    with one kernel launch (and one halo exchange) less.
+    """
+    fabric = FabricAxes.from_mesh(mesh)
+    kw = dict(tol=tol, maxiter=maxiter, policy=policy, fused_reductions=fused_reductions,
+              schedule=schedule, record_history=record_history, solver=solver,
+              backend=backend, precond=precond)
+    _check_rhs(coeffs, b)
+    if fabric.size == 1:
+        return solve_block(mesh, coeffs, b, x0, **kw)
+    _refuse_reference(backend, fabric)
+    dist.check_fabric(fabric.size)
+    nb = b.ndim - coeffs.ndim
+    res = solve_block(mesh, local_coeffs(coeffs, fabric), local_block(b, fabric, nb),
+                      None if x0 is None else local_block(x0, fabric, nb), **kw)
+    return dataclasses.replace(res, x=gather_blocks(res.x, fabric, nb))
+
+
 def make_iteration_fn(mesh, *, policy: Policy = MIXED, fused_reductions: bool = True,
                       schedule: str | None = None, backend: str = "spmd"):
     """One BiCGStab iteration as a plain function on the rank mesh:
-    ``(coeffs, x, r, p, r0, rho) -> (x, r, p, rho, res2)``.
+    ``(coeffs, x, r, p, r0, rho) -> (x, r, p, rho, res2)`` on global arrays
+    (each rank takes its block; ``x``, ``r`` and ``p`` are gathered back).
 
     The unit the paper measures: 2 SpMVs, the AXPYs, the dots and 3 sync
     points (5 with ``fused_reductions=False``).  With ``backend="fused"``
     the body is the fused-kernel dataflow of the solver's loop (2 stencil
     kernels, ``dot_mixed``, the three fused passes, 3 ``reduce_partials``);
     otherwise it is the generic loop's body over ``op.apply``/``op.dots``.
-    A mesh of more than one rank raises until the ``torch.distributed``
-    slice lands.
     """
     sched = get_schedule(schedule)
     fabric = FabricAxes.from_mesh(mesh)
-    if fabric.size > 1:
-        raise NotImplementedError("multi-rank iteration (torch.distributed): next slice")
+    _refuse_reference(backend, fabric)
 
-    def iteration(coeffs, x, r, p, r0, rho):
+    def step(coeffs, x, r, p, r0, rho):
         op = make_operator(backend, coeffs, fabric, policy=policy, schedule=sched,
                            fused_reductions=fused_reductions)
         if op.fused is not None:
@@ -115,6 +158,15 @@ def make_iteration_fn(mesh, *, policy: Policy = MIXED, fused_reductions: bool = 
             out = bicgstab_step(op.apply, op.dots, policy, *axpy_family(policy),
                                 x, r, p, r0, rho)
         return out[:5]
+
+    if fabric.size == 1:
+        return step
+    dist.check_fabric(fabric.size)
+
+    def iteration(coeffs, x, r, p, r0, rho):
+        blocks = [local_block(a, fabric) for a in (x, r, p, r0)]
+        x, r, p, rho, res2 = step(local_coeffs(coeffs, fabric), *blocks, rho)
+        return (*(gather_blocks(a, fabric) for a in (x, r, p)), rho, res2)
 
     return iteration
 
@@ -126,7 +178,8 @@ def solve_refined(coeffs: StencilCoeffs, b: torch.Tensor, *, mesh=None, outer_it
 
     Residuals and the solution accumulate in f32; each correction solve runs
     in ``inner_policy``, through :func:`solve_ref` (reference backend) or,
-    with a ``mesh``, :func:`solve_distributed` (spmd backend).  Returns the
+    with a ``mesh``, :func:`solve_distributed` (spmd backend, on every rank
+    of the mesh, with the f32 residuals from :func:`global_apply`).  Returns the
     f32 solution and the relative true residual before each outer step and
     after the last (``outer_iters + 1`` values).
     """

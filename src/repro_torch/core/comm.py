@@ -9,9 +9,12 @@ Counterpart of ``repro/core/comm.py``.
   ring.  Both accumulate the same terms in the same canonical order, so they
   agree bitwise.
 
-On the one-rank fabric there is no boundary ring (:func:`boundary_regions`
-is empty), so both schedules reach the same kernel on the zero-padded
-block; both code paths stay for the multi-rank slice.
+On more ranks the overlap schedule posts the halo messages
+(:func:`start_halo_exchange`), computes the interior while they travel,
+and waits only when it patches the boundary ring.  On the one-rank fabric
+there is no boundary ring (:func:`boundary_regions` is empty), so both
+schedules reach the same kernel on the zero-padded block, and nothing is
+sent.
 
 Observability, at the JAX package's sites: spans ``comm.halo.issue``,
 ``.blocking``, ``.fused_epilogue``, ``.interior`` and ``.ring``, and the
@@ -26,7 +29,9 @@ import functools
 
 import torch
 
-from repro_torch.core.halo import FabricAxes, gather_halo, interior_apply, padded_apply
+from repro_torch.core.halo import (
+    FabricAxes, HaloPost, gather_halo, interior_apply, is_split, padded_apply,
+)
 from repro_torch.core.precision import F32, Policy
 from repro_torch.core.stencil import StencilCoeffs
 from repro_torch.obs import metrics as obs_metrics
@@ -67,12 +72,14 @@ def get_schedule(schedule, default: CommSchedule = OVERLAP) -> CommSchedule:
 class HaloExchange:
     """A started depth-r halo exchange.
 
-    ``padded`` is the r-padded block with halos filled.  On the one-rank
-    fabric nothing travels, so the block is built on its first read: the
-    overlap schedule with no boundary ring never reads it, and eager PyTorch
-    (unlike XLA) would not drop an unread copy.  ``filled`` hands in a block
-    whose halos are already in place (the tuning sweep's stand-in for a
-    neighbor's faces, ``core/tuning.py:synthetic_exchange``).
+    ``padded`` is the r-padded block with halos filled.  With a split axis
+    the messages were posted when the exchange started (``post``), and the
+    first read of ``padded`` waits on them.  On the one-rank fabric nothing
+    travels, so the block is built on its first read: the overlap schedule
+    with no boundary ring never reads it, and eager PyTorch (unlike XLA)
+    would not drop an unread copy.  ``filled`` hands in a block whose halos
+    are already in place (the tuning sweep's stand-in for a neighbor's
+    faces, ``core/tuning.py:synthetic_exchange``).
     """
 
     v: torch.Tensor
@@ -81,6 +88,7 @@ class HaloExchange:
     corners: bool = False
     n_batch: int = 0
     filled: torch.Tensor | None = None
+    post: HaloPost | None = None
 
     @property
     def shape(self) -> tuple[int, ...]:
@@ -91,22 +99,30 @@ class HaloExchange:
     def padded(self) -> torch.Tensor:
         if self.filled is not None:
             return self.filled
+        if self.post is not None:
+            return self.post.wait()
         return gather_halo(self.v, self.fabric, self.radius,
                            corners=self.corners, n_batch=self.n_batch)
 
 
 def start_halo_exchange(v: torch.Tensor, fabric: FabricAxes, radius: int, *,
                         corners: bool = False, n_batch: int = 0) -> HaloExchange:
-    """Start the depth-r exchange and return its handle."""
+    """Start the depth-r exchange (post its messages where an axis is split)
+    and return its handle."""
     obs_metrics.counter("comm.halo_exchanges").inc()
     with obs_trace.span("comm.halo.issue", radius=radius, n_batch=n_batch):
-        return HaloExchange(v, fabric, radius, corners, n_batch)
+        post = None
+        if is_split(fabric, v.ndim - n_batch):
+            post = HaloPost(v, fabric, radius, corners=corners, n_batch=n_batch)
+        return HaloExchange(v, fabric, radius, corners, n_batch, post=post)
 
 
 def boundary_regions(shape: tuple[int, ...], fabric: FabricAxes,
                      radius: int) -> list[tuple[slice, ...]]:
     """The depth-r slabs of the local block that read halo values: two per
-    split fabric axis (none on a one-rank fabric)."""
+    split fabric axis (none on a one-rank fabric).  Slabs of different axes
+    overlap at edges and corners; patching them in turn writes the same
+    values there."""
     regions = []
     for axis, name, n in fabric.split_info(len(shape)):
         if name is None or n == 1:

@@ -17,13 +17,14 @@ Backends (:data:`BACKENDS`):
 * ``fused``: the halo exchange feeding the CUDA stencil kernel plus the
   fused_iter kernels (the counterpart of the JAX package's ``pallas``).
 
-On the one-rank fabric every AllReduce is the identity; an axis split over
-more ranks raises until the ``torch.distributed`` slice lands.  Each
-AllReduce the reductions make (one per sync point, or one per dot in the
-paper's separate schedule, and each fabric-wide max) still bumps the
-``comm.allreduce`` counter of :mod:`repro_torch.obs.metrics`: a count of
-what ran, so a BiCGStab solve of n iterations reads 1 + 3n.  The JAX
-package counts the ops of the lowered program instead (1 + 3).
+On a fabric of more ranks every AllReduce is one ``torch.distributed``
+``all_reduce`` (``core/dist.py``); on the one-rank fabric it is the identity
+and nothing is called.  Each AllReduce the reductions make (one per sync
+point, or one per dot in the paper's separate schedule, and each
+fabric-wide max) bumps the ``comm.allreduce`` counter of
+:mod:`repro_torch.obs.metrics`, on one rank too: a count of what ran, so a
+BiCGStab solve of n iterations reads 1 + 3n on every rank.  The JAX package
+counts the ops of the lowered program instead (1 + 3).
 
 Every backend takes a batch of right-hand sides: an operand with one axis
 more than the coefficients (``nb = v.ndim - coeffs.ndim``) yields ``[B]``
@@ -38,6 +39,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core import dist
 from repro_torch.core.comm import OVERLAP, CommSchedule, get_schedule, scheduled_apply
 from repro_torch.core.halo import FabricAxes
 from repro_torch.core.precision import F32, Policy
@@ -86,24 +88,28 @@ def _identity_reduce(partials) -> torch.Tensor:
 
 
 def _fabric_axis_names(fabric: FabricAxes) -> tuple[str, ...]:
-    """Fabric axes that carry more than one rank."""
+    """Fabric axes that carry more than one rank (their reductions need a
+    process group of the fabric's size)."""
     pairs = ((fabric.x, fabric.nx), (fabric.y, fabric.ny), (fabric.z, fabric.nz))
-    return tuple(a for a, n in pairs if a is not None and n > 1)
+    names = tuple(a for a, n in pairs if a is not None and n > 1)
+    if names:
+        dist.check_fabric(fabric.size)
+    return names
 
 
 def _make_reductions(names: tuple[str, ...], fused_reductions: bool,
                      mesh_ndim: int | None = None):
     """(dots, reduce_partials, reduce_max) over the named fabric axes: one
     AllReduce per sync point (fused) or per dot (the paper's separate
-    schedule).  On one rank (no names) each AllReduce is the identity.
+    schedule).  The named axes span the whole process group, so each
+    AllReduce runs over it; on one rank (no names) each is the identity.
 
     ``mesh_ndim`` enables the batch axis: operands of higher rank give
     per-RHS ``[B]`` partials, and a sync point reduces the stacked
     ``[k, B]`` array at once.  Every AllReduce bumps ``comm.allreduce``."""
-    if names:
-        raise NotImplementedError("multi-rank AllReduce (torch.distributed): next slice")
-
     def psum(x):
+        if names:
+            return dist.all_reduce_sum(x)
         obs_metrics.counter("comm.allreduce").inc()
         return x
 
@@ -119,6 +125,8 @@ def _make_reductions(names: tuple[str, ...], fused_reductions: bool,
                                 for a, b in pairs])
 
     def reduce_max(x):
+        if names:
+            return dist.all_reduce_max(x)
         obs_metrics.counter("comm.allreduce").inc()
         return x
 

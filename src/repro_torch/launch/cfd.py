@@ -6,6 +6,8 @@
         --checkpoint-dir /tmp/cfd_ckpt
     PYTHONPATH=src python -m repro_torch.launch.cfd --p-solver pipelined_bicgstab --schedule overlap
     PYTHONPATH=src python -m repro_torch.launch.cfd --device cpu --n 12 --outer 60 --no-check
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.cfd --device cpu \
+        --n 24 --backend spmd --precond jacobi              # a 2x2 rank fabric
 
 Counterpart of ``python -m repro.launch.cfd``, with its flags and defaults
 plus ``--device``.  Steady mode runs the lid-driven cavity (or channel)
@@ -18,7 +20,10 @@ the latest checkpoint is automatic and bit-deterministic).
 ``--solver/--backend/--precond/--policy`` select the same registry entries
 as ``launch/solve.py``.  The 2D fields have no CUDA kernel, so only the
 ``reference`` and ``spmd`` backends are offered.  It runs on the card unless
-``--device cpu`` is given, and refuses to start without one.
+``--device cpu`` is given, and refuses to start without one.  Under
+``torchrun`` (``spmd``) every rank runs the SIMPLE iteration on its block of
+a 2D rank fabric that must divide ``--n`` (``--dist-backend`` as in
+``launch/solve.py``); rank 0 alone prints and writes the run bundle.
 """
 
 from __future__ import annotations
@@ -32,12 +37,13 @@ from repro_torch.apps.cfd import (
     CFDConfig, SolverOptions, TransientConfig, centerline_u, run_transient,
     solve_steady, to_staggered,
 )
-from repro_torch.core import precision
+from repro_torch.core import dist, precision
 from repro_torch.core.comm import SCHEDULES
 from repro_torch.core.precond import PRECONDS
 from repro_torch.core.solvers import SOLVERS
-from repro_torch.device import device_name, resolve_device, synchronize
+from repro_torch.device import device_name, synchronize
 from repro_torch.launch.mesh import make_mesh_for_devices
+from repro_torch.launch.solve import join_ranks, root_prints
 from repro_torch.obs import manifest as obs_manifest
 
 
@@ -94,6 +100,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="skip the Ghia centerline acceptance check")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to run (default cuda)")
+    ap.add_argument("--dist-backend", default=None, choices=list(dist.BACKENDS),
+                    help="torch.distributed backend under torchrun (default nccl on the "
+                         "card, one rank per card; gloo on the CPU, or to share a card)")
     ap.add_argument("--obs", action="store_true",
                     help="observability: spans + metrics + a run bundle "
                          "results/runs/<run_id>/ (or --run-dir)")
@@ -112,11 +121,12 @@ def main(argv=None) -> dict:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device (torch.cuda.is_available() is False); "
                          "pass --device cpu to run on the CPU")
-    device = resolve_device(args.device)
+    device = join_ranks(args.dist_backend, args.device)
     args.obs = args.obs or args.profile or args.run_dir is not None
-    if not args.obs:
-        return run(args, device)
-    return obs_manifest.run_bundled("cfd", args, device, run)
+    with root_prints():
+        if not args.obs:
+            return run(args, device)
+        return obs_manifest.run_bundled("cfd", args, device, run)
 
 
 def run(args: argparse.Namespace, device: torch.device) -> dict:

@@ -1,4 +1,5 @@
-"""Stencil-solver CLI: the paper's experiment on one GPU.
+"""Stencil-solver CLI: the paper's experiment on one GPU, or on the ranks of
+a ``torchrun`` group.
 
     PYTHONPATH=src python -m repro_torch.launch.solve --backend fused
     PYTHONPATH=src python -m repro_torch.launch.solve --backend fused \
@@ -11,6 +12,10 @@
     PYTHONPATH=src python -m repro_torch.launch.solve --backend fused --autotune
     PYTHONPATH=src python -m repro_torch.launch.solve --backend fused --obs --run-dir /tmp/run
     PYTHONPATH=src python -m repro_torch.launch.solve --backend fused --profile --maxiter 5
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.solve \
+        --device cpu --mesh 16 16 8 --policy f32
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.solve \
+        --backend fused --dist-backend gloo       # 4 ranks sharing one card
 
 Counterpart of ``python -m repro.launch.solve``, with its flag names and
 defaults: builds a diagonally dominant system of the requested stencil shape,
@@ -27,19 +32,31 @@ entry (``REPRO_TORCH_TUNING_CACHE`` or ``results/tuning_cache_torch.json``).
 (``results/runs/<run_id>/`` or ``--run-dir``), and ``--profile`` adds a
 ``torch.profiler`` trace in ``<run_dir>/torch_profile``.  It runs on the card
 unless ``--device cpu`` is given, and refuses to start without one.
+
+Under ``torchrun`` every rank runs the solve on its ``(bx, by, Z)`` block of
+a near-square rank fabric (``launch/mesh.py``), exchanging halos with its
+neighbours and summing dot partials by AllReduce (``--dist-backend``:
+``nccl``, one rank per card, the default on the card; ``gloo``, the default
+on the CPU, lets ranks share a card).  Uniform problems are built block by
+block; a random system and the manufactured solution are drawn once, on
+rank 0, which hands each rank its block.  ``b``, the true residual and the
+collective counts are computed across the ranks; rank 0 alone prints and
+writes the run bundle, which lists every rank's counts.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import math
 import time
 
 import torch
 
-from repro_torch.core import bicgstab, perfmodel, precision, stencil
+from repro_torch.core import bicgstab, dist, perfmodel, precision, stencil
 from repro_torch.core.comm import SCHEDULES
-from repro_torch.core.halo import FabricAxes
+from repro_torch.core.halo import FabricAxes, block_slices, local_apply
 from repro_torch.core.operator import BACKENDS
 from repro_torch.core.precond import PRECONDS, PrecondConfig
 from repro_torch.core.solvers import SOLVERS
@@ -53,21 +70,25 @@ from repro_torch.obs import trace as obs_trace
 PROBLEMS = ["convdiff", "random", "poisson", "heterogeneous", "seismic"]
 
 
+def default_problem(problem: str | None, spec: stencil.StencilSpec,
+                    solver: str = "bicgstab") -> str:
+    """The problem asked for, or the shape-appropriate default."""
+    if problem is not None:
+        return problem
+    if solver in ("cg", "pipelined_cg"):
+        return "poisson"                     # CG wants a symmetric operator
+    if spec == stencil.STAR7:
+        return "convdiff"
+    return "seismic" if spec.pattern == "star" else "random"
+
+
 def build_problem(problem: str | None, spec: stencil.StencilSpec, shape, *,
                   generator: torch.Generator, device: torch.device,
                   solver: str = "bicgstab"):
     """(problem name, coefficients) for the requested pair, in f32 on
     ``device``.  The random problems draw from ``generator`` on its own
     device and are moved; the others are built on ``device``."""
-    if problem is None:                      # shape-appropriate default
-        if solver in ("cg", "pipelined_cg"):
-            problem = "poisson"              # CG wants a symmetric operator
-        elif spec == stencil.STAR7:
-            problem = "convdiff"
-        elif spec.pattern == "star":
-            problem = "seismic"
-        else:
-            problem = "random"
+    problem = default_problem(problem, spec, solver)
     if problem == "random":
         return problem, stencil.random_nonsymmetric(generator, shape, spec=spec).to(device)
     if problem == "poisson":
@@ -159,6 +180,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to run (default cuda; the CPU runs the kernels' "
                          "plain versions)")
+    ap.add_argument("--dist-backend", default=None, choices=list(dist.BACKENDS),
+                    help="torch.distributed backend under torchrun (default nccl on the "
+                         "card, one rank per card; gloo on the CPU, or to share a card)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the problem (seed) and the manufactured solution (seed+1)")
     ap.add_argument("--obs", action="store_true",
@@ -196,11 +220,37 @@ def main(argv=None) -> dict:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device (torch.cuda.is_available() is False); "
                          "pass --device cpu to run on the CPU")
-    device = resolve_device(args.device)
+    device = join_ranks(args.dist_backend, args.device)
     args.obs = args.obs or args.profile or args.run_dir is not None
-    if not args.obs:
-        return run(args, device)
-    return obs_manifest.run_bundled("solve", args, device, run)
+    with root_prints():
+        if not args.obs:
+            return run(args, device)
+        return obs_manifest.run_bundled("solve", args, device, run)
+
+
+def join_ranks(backend: str | None, device_type: str) -> torch.device:
+    """This process's device: under ``torchrun``, after joining the group
+    (rank 0 then prints the rank-to-device map); else ``device_type``."""
+    if not dist.launched():
+        return resolve_device(device_type)
+    try:
+        device = dist.init(backend, device_type=device_type)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    if dist.is_root():
+        print(f"ranks on {dist.backend()}: " + " ".join(
+            f"{r}:{d}" for r, d in enumerate(dist.describe()["rank_devices"])))
+    return device
+
+
+@contextlib.contextmanager
+def root_prints():
+    """Standard output of every rank but 0 is dropped."""
+    if dist.is_root():
+        yield
+        return
+    with contextlib.redirect_stdout(io.StringIO()):
+        yield
 
 
 def _true_rel_residual(cf: stencil.StencilCoeffs, x: torch.Tensor, b: torch.Tensor) -> float:
@@ -211,20 +261,89 @@ def _true_rel_residual(cf: stencil.StencilCoeffs, x: torch.Tensor, b: torch.Tens
     return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b.double()))
 
 
+def _true_rel_residuals_ranks(cf: stencil.StencilCoeffs, x: torch.Tensor, b: torch.Tensor,
+                              fabric: FabricAxes) -> list[float]:
+    """Per RHS ``||b - A x|| / ||b||`` across the ranks: A x in f32 through
+    the plain halo-exchange apply on this rank's block, the f64 sums of
+    squares of every RHS summed in one AllReduce."""
+    ax = local_apply(cf.astype(torch.float32), x.to(torch.float32), fabric, policy=precision.F32)
+    nb = b.ndim - cf.ndim
+    r = b.double() - ax.double()
+    del ax
+    dims = tuple(range(nb, r.ndim))
+    sums = torch.stack([r.square().sum(dims), b.double().square().sum(dims)], dim=-1)
+    del r
+    tot = dist.all_reduce_sum(sums.reshape(-1, 2)).cpu()
+    return [float(torch.sqrt(t[0] / t[1])) for t in tot]
+
+
+#: problems whose fields are the same at every point: a rank builds its block
+UNIFORM_PROBLEMS = ("poisson", "convdiff", "seismic")
+
+
+def rank_system(problem: str | None, spec: stencil.StencilSpec, shape, fabric: FabricAxes, *,
+                seed: int, device: torch.device, nrhs: int = 1, solver: str = "bicgstab"):
+    """(problem name, f32 coefficients, f32 ``x_true``) of this rank's block
+    of the seeded system.  A uniform problem is built on the block itself (a
+    block of a uniform field is the field on the block); a random one, and
+    ``x_true``, are drawn once on rank 0's host generator, exactly as the
+    one-rank run draws them, and rank 0 hands each rank its block, so no
+    other rank ever holds the global arrays."""
+    local = tuple(s // n for s, (_, _, n) in zip(shape, fabric.split_info(len(shape))))
+    root = dist.is_root()
+    cpu = torch.device("cpu")
+    name = default_problem(problem, spec, solver)
+
+    def scatter(full, lead=()):
+        """Rank 0's ``full`` array (leading axes ``lead``) block by block."""
+        blocks = None if full is None else [
+            full[(slice(None),) * len(lead) + block_slices(fabric.at_rank(r), tuple(shape))]
+            for r in range(fabric.size)]
+        return dist.scatter_from_root(blocks, lead + local, torch.float32, device)
+
+    if name in UNIFORM_PROBLEMS:
+        _, cf = build_problem(name, spec, local, generator=torch.Generator(cpu), device=device,
+                              solver=solver)
+    else:
+        full = manufactured_problem(name, spec, shape, seed=seed, device=cpu,
+                                    solver=solver)[1] if root else None
+        has_diag = dist.all_gather_object(root and full.diag is not None)[0]
+        cf = stencil.StencilCoeffs(
+            {n: scatter(full.diags[n] if root else None) for n in spec.names},
+            scatter(full.diag if root else None) if has_diag else None)
+        del full
+    xt = manufactured_solution(shape, seed=seed, device=cpu, nrhs=nrhs) if root else None
+    return name, cf, scatter(xt, (nrhs,) if nrhs > 1 else ())
+
+
 def _autotune(spec, pol, shape, mesh, nrhs: int, device: torch.device) -> dict:
     """``--autotune``: sweep (or find in the cache) the kernel cell the
     fused operator will look up, the local block under this fabric in the
-    storage dtype, timed on this fabric."""
+    storage dtype, timed on this fabric.  On more ranks rank 0 sweeps and
+    writes the cache, and the others look the entry up after a barrier."""
     from repro_torch.core import tuning
 
     fabric = FabricAxes.from_mesh(mesh)
     local = (shape[0] // fabric.nx, shape[1] // fabric.ny, shape[2] // fabric.nz)
-    rec = tuning.ensure_tuned(spec, pol.storage, local, nrhs=nrhs, fabric=fabric,
-                              device=device)
+    tune = lambda: tuning.ensure_tuned(spec, pol.storage, local, nrhs=nrhs, fabric=fabric,
+                                       device=device)
+    rec = tune() if dist.is_root() else None
+    if fabric.size > 1:
+        dist.barrier()
+        rec = rec or tune()
     note = "cache hit" if rec["cache_hit"] else (
         f"swept {rec['n_candidates']} configs, {rec['speedup_vs_default']:.3f}x the default")
     print(f"autotune[{rec['key']}]: {note}, config={rec['config']}")
     return rec
+
+
+def _check_divides(shape, mesh) -> FabricAxes:
+    fabric = FabricAxes.from_mesh(mesh)
+    for (dim, _, n), m in zip(fabric.split_info(len(shape)), shape):
+        if m % n:
+            raise SystemExit(f"--mesh extent {m} on axis {dim} does not divide by the "
+                             f"fabric's {n} ranks there ({mesh.shape})")
+    return fabric
 
 
 def run(args: argparse.Namespace, device: torch.device) -> dict:
@@ -232,22 +351,34 @@ def run(args: argparse.Namespace, device: torch.device) -> dict:
     spec = stencil.get_spec(args.stencil)
     pol = precision.get_policy(args.policy)
     mesh = make_mesh_for_devices()
+    fabric = _check_divides(shape, mesh)
+    ranks = fabric.size > 1
     tuned = _autotune(spec, pol, shape, mesh, args.nrhs, device) if args.autotune else None
     t0 = time.perf_counter()
-    problem, cf = manufactured_problem(args.problem, spec, shape, seed=args.seed,
-                                       device=device, solver=args.solver)
-    synchronize(device)
-    t1 = time.perf_counter()
-    x_true = manufactured_solution(shape, seed=args.seed, device=device, nrhs=args.nrhs)
-    synchronize(device)
-    setup = dict(problem_s=t1 - t0, x_true_s=time.perf_counter() - t1)
-    b = stencil.rhs_for_solution(cf, x_true)
+    if ranks:
+        problem, cf, x_true = rank_system(args.problem, spec, shape, fabric, seed=args.seed,
+                                          device=device, nrhs=args.nrhs, solver=args.solver)
+        synchronize(device)
+        setup = dict(system_s=time.perf_counter() - t0)
+        b = local_apply(cf, x_true, fabric, policy=precision.F32)
+    else:
+        problem, cf = manufactured_problem(args.problem, spec, shape, seed=args.seed,
+                                           device=device, solver=args.solver)
+        synchronize(device)
+        t1 = time.perf_counter()
+        x_true = manufactured_solution(shape, seed=args.seed, device=device, nrhs=args.nrhs)
+        synchronize(device)
+        setup = dict(problem_s=t1 - t0, x_true_s=time.perf_counter() - t1)
+        b = stencil.rhs_for_solution(cf, x_true)
     dev_name = device_name(device)
     print(f"problem {problem}/{spec.name} (radius {spec.radius}, {spec.n_points} points) "
           f"{shape} on fabric {mesh.shape} solver={args.solver} backend={args.backend} "
           f"schedule={args.schedule} precond={args.precond} policy={pol.name} "
           f"nrhs={args.nrhs} device={dev_name}")
     if args.refine:
+        if ranks:
+            raise SystemExit("--refine runs on one rank (its global f32 residuals gather "
+                             "the whole system); drop torchrun or --refine")
         return dict(_refine(mesh, cf, b, x_true, pol, problem, dev_name), **setup)
     del x_true
 
@@ -255,11 +386,14 @@ def run(args: argparse.Namespace, device: torch.device) -> dict:
     labels = dict(solver=args.solver, backend=args.backend, schedule=args.schedule,
                   nrhs=args.nrhs, problem=problem, policy=pol.name)
     before = obs_metrics.collective_counts()
+    staged = obs_metrics.counter("comm.host_staged_bytes").value
 
     synchronize(device)
     t0 = time.perf_counter()
     with obs_trace.span("solve.krylov", **labels) as sp:
-        res = bicgstab.solve_distributed(
+        # every rank solves its own block; one rank's block is the system
+        solve = bicgstab.solve_block if ranks else bicgstab.solve_distributed
+        res = solve(
             mesh, cf, bs, tol=args.tol, maxiter=args.maxiter, policy=pol, solver=args.solver,
             backend=args.backend,
             precond=PrecondConfig(name=args.precond, degree=args.cheb_degree),
@@ -268,12 +402,14 @@ def run(args: argparse.Namespace, device: torch.device) -> dict:
     synchronize(device)
     dt = time.perf_counter() - t0
     after = obs_metrics.collective_counts()
-    collectives = obs_metrics.record_collectives(
-        {k: after[k] - before[k] for k in after}, **labels)
+    counts = {k: after[k] - before[k] for k in after}
+    staged = obs_metrics.counter("comm.host_staged_bytes").value - staged
+    per_rank = dist.all_gather_object(counts) if ranks else None
+    collectives = obs_metrics.record_collectives(counts, per_rank=per_rank, **labels)
     emit_solve_metrics(res, wall_s=dt, **labels)
     out = dict(problem=problem, stencil=spec.name, shape=list(shape), policy=pol.name,
                solver=args.solver, backend=args.backend, precond=args.precond,
-               nrhs=args.nrhs, device=dev_name,
+               nrhs=args.nrhs, device=dev_name, fabric=mesh.shape, ranks=fabric.size,
                iterations=res.iterations.tolist(), converged=res.converged.tolist(),
                breakdown=res.breakdown.tolist(), rel_residual=res.rel_residual.tolist(),
                wall_s=dt, collectives=collectives, **setup)
@@ -281,8 +417,16 @@ def run(args: argparse.Namespace, device: torch.device) -> dict:
         out["autotune"] = tuned
     most = max(out["iterations"]) if args.nrhs > 1 else out["iterations"]
     out["ms_per_iter"] = dt / max(most, 1) * 1e3
-    print(f"collectives (executed on one rank): allreduce={collectives['allreduce_total']} "
-          f"ppermute={collectives['ppermute_total']}")
+    if ranks:
+        out["host_staged_bytes"] = staged       # gloo with card tensors: through the host
+        print(f"collectives (executed on each of {fabric.size} ranks): "
+              f"allreduce={collectives['allreduce_total']} "
+              f"ppermute={collectives['ppermute_total']}, {staged} bytes staged through "
+              f"the host on rank 0")
+    else:
+        print(f"collectives (executed on one rank): "
+              f"allreduce={collectives['allreduce_total']} "
+              f"ppermute={collectives['ppermute_total']}")
     # achieved share of the card's f32 peak, the paper's accounting (§VII:
     # ~1/3 of peak on the CS-1)
     achieved = (perfmodel.FLOPS_PER_PT * math.prod(shape)
@@ -295,15 +439,21 @@ def run(args: argparse.Namespace, device: torch.device) -> dict:
     del res, bs          # the solve's state is freed; x and b remain
 
     # true residual, one RHS at a time (f64 temporaries of a whole batch
-    # would be B times as large)
+    # would be B times as large); across the ranks, one AllReduce
+    if ranks:
+        true_rel = _true_rel_residuals_ranks(cf, x, b, fabric)
+    elif args.nrhs == 1:
+        true_rel = [_true_rel_residual(cf, x, b)]
+    else:
+        true_rel = [_true_rel_residual(cf, x[i], b[i]) for i in range(args.nrhs)]
     if args.nrhs == 1:
-        out["true_rel_residual"] = _true_rel_residual(cf, x, b)
+        out["true_rel_residual"] = true_rel[0]
         print(f"iterations: {out['iterations']}  converged: {out['converged']}")
         print(f"recurrence rel-residual: {out['rel_residual']:.3e}")
         print(f"true rel-residual (f32 check): {out['true_rel_residual']:.3e}")
         print(f"wall time: {dt:.3f}s ({out['ms_per_iter']:.3f} ms/iter on {dev_name})")
         return out
-    out["true_rel_residual"] = [_true_rel_residual(cf, x[i], b[i]) for i in range(args.nrhs)]
+    out["true_rel_residual"] = true_rel
     print(f"per-RHS iterations: {out['iterations']}")
     print(f"per-RHS converged:  {out['converged']}")
     print("recurrence rel-residuals:", [f"{v:.3e}" for v in out["rel_residual"]])

@@ -31,6 +31,7 @@ import subprocess
 import sys
 import time
 
+from repro_torch.core import dist
 from repro_torch.obs import metrics, trace
 
 SCHEMA = "repro.obs.v1"
@@ -176,6 +177,7 @@ def finish_run(ctx: RunContext, *, extra: dict | None = None, failed: bool = Fal
         "git": git_info(),
         "versions": versions(),
         "devices": device_topology(),
+        "dist": dist.describe(),
         "env": env_flags(),
         "metrics": metrics.snapshot(),
         "wall_s": wall,
@@ -200,6 +202,8 @@ def run_bundled(kind: str, args, device, run) -> dict:
     bundle is written whether or not the run raises (a raising run's
     profile skips its device-activity check, so the run's own error is the
     one raised).  Returns the run's dict with ``run_dir`` added."""
+    if not dist.is_root():
+        return run(args, device)       # rank 0 alone writes the bundle
     metrics.reset()
     trace.reset()
     trace.enable(sync=True)

@@ -10,11 +10,13 @@ an integer add); spans are the opt-in part of observability.
 Two departures from the JAX package, both because nothing is traced here:
 
 * there is no HLO, so :func:`record_collectives` takes counts the port's own
-  counter made (``comm.allreduce``, bumped where each AllReduce runs)
-  instead of counting ops in lowered text.  These are counts of what
-  *ran*: a loop of n iterations counts its body n times, where the JAX
-  package counts the body's ops once in the program.  The one-rank fabric
-  sends no halo message, so ``ppermute_total`` is 0;
+  counters made (``comm.allreduce``, bumped where each AllReduce runs, and
+  ``comm.ppermute``, 2 per split fabric axis per halo exchange, as the JAX
+  package counts its ``fwd`` and ``bwd`` permutes) instead of counting ops
+  in lowered text.  These are counts of what *ran*: a loop of n iterations
+  counts its body n times, where the JAX package counts the body's ops once
+  in the program.  The one-rank fabric sends no halo message, so
+  ``ppermute_total`` is 0 there;
 * there are no tracers, so every value fed to :func:`record_solve` is
   concrete and there is no ``is_concrete`` guard.
 """
@@ -149,8 +151,8 @@ def events() -> list[dict]:
 # Collective counts (executed, from the port's counters)
 
 #: the counters a collective bumps where it runs (core/operator.py's
-#: reductions), under the bundle's keys
-COLLECTIVE_COUNTERS = {"allreduce_total": "comm.allreduce"}
+#: reductions, core/dist.py's exchanges), under the bundle's keys
+COLLECTIVE_COUNTERS = {"allreduce_total": "comm.allreduce", "ppermute_total": "comm.ppermute"}
 
 
 def collective_counts() -> dict[str, int]:
@@ -158,18 +160,21 @@ def collective_counts() -> dict[str, int]:
     return {k: counter(name).value for k, name in COLLECTIVE_COUNTERS.items()}
 
 
-def record_collectives(counts: dict, **labels) -> dict:
+def record_collectives(counts: dict, *, per_rank: list | None = None, **labels) -> dict:
     """Mirror AllReduce / ppermute totals into gauges and append a
     ``collectives`` event carrying the labels (solver, schedule, nrhs...).
 
     ``counts`` holds ``allreduce_total`` (e.g. the difference of
     :func:`collective_counts` around one solve) and, where halo messages
-    were sent, ``ppermute_total`` (0 when absent: none on one rank)."""
+    were sent, ``ppermute_total`` (0 when absent: none on one rank).
+    ``per_rank`` (a multi-rank run) lists every rank's own counts, in rank
+    order, and rides the event beside this rank's."""
     counts = {k: int(counts.get(k, 0)) for k in ("allreduce_total", "ppermute_total")}
     prefix = labels.get("solver", "solve")
     gauge(f"collectives.{prefix}.allreduce_total").set(counts["allreduce_total"])
     gauge(f"collectives.{prefix}.ppermute_total").set(counts["ppermute_total"])
-    event("collectives", **labels, **counts)
+    extra = {} if per_rank is None else {"per_rank": per_rank}
+    event("collectives", **labels, **counts, **extra)
     return counts
 
 

@@ -396,7 +396,8 @@ def test_validate_refuses_what_the_stack_lacks():
     mesh4 = make_mesh_for_devices(4)
     with pytest.raises(ValueError, match="single-address-space"):
         tdrv.make_step_fn(cfg, T.SolverOptions(backend="reference"), mesh4)
-    with pytest.raises(NotImplementedError, match="multi-rank"):
+    # four ranks need a process group of four (tests/test_torch_dist_cfd.py runs one)
+    with pytest.raises(RuntimeError, match="process group of 4 ranks"):
         tdrv.make_step_fn(cfg, T.SolverOptions(backend="spmd"), mesh4)
     # a one-rank mesh is the unsplit fabric
     tdrv.make_step_fn(cfg, T.SolverOptions(backend="spmd"), make_mesh_for_devices(1))

@@ -118,5 +118,7 @@ def test_fused_local_apply_schedules_bitwise(specname, policy):
 def test_multi_rank_fabric_raises():
     cf = tst.poisson((4, 4, 4), device="cpu")
     v = torch.ones((4, 4, 4))
-    with pytest.raises(NotImplementedError, match="next slice"):
+    # a split axis exchanges halos, which needs a process group of the
+    # fabric's size (tests/test_torch_dist_halo.py runs one)
+    with pytest.raises(RuntimeError, match="process group of 2 ranks"):
         fused_local_apply(cf, v, FabricAxes(nx=2), policy=tprec.F32, schedule=BLOCKING)

@@ -120,20 +120,25 @@ def test_iteration_fn_matches_jax(backends):
 
 
 def test_iteration_fn_refuses_more_ranks():
-    with pytest.raises(NotImplementedError, match="next slice"):
+    """More ranks than the process group holds (none here) are refused, and
+    the reference backend is refused on any fabric of more ranks."""
+    with pytest.raises(RuntimeError, match="process group of 4 ranks"):
         tbi.make_iteration_fn(TWO_BY_TWO, backend="fused")
+    with pytest.raises(ValueError, match="single-address-space"):
+        tbi.make_iteration_fn(TWO_BY_TWO, backend="reference")
 
 
 def test_global_apply_on_one_rank():
     """The one-rank global SpMV is the local apply on the whole array (and
-    the reference apply bit for bit); more ranks raise."""
+    the reference apply bit for bit); more ranks than the process group
+    holds (none here) raise."""
     _, ct, x = _convdiff((6, 5, 4))
     v = torch.from_numpy(x)
     assert_bitwise(thalo.global_apply(ONE_RANK, ct, v), tst.apply_ref(ct, v))
     vb = torch.stack([v, 2 * v])
     assert_bitwise(thalo.global_apply(ONE_RANK, ct, vb, schedule="blocking"),
                    tst.apply_ref(ct, vb))
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(RuntimeError, match="process group of 4 ranks"):
         thalo.global_apply(TWO_BY_TWO, ct, v)
 
 

@@ -162,14 +162,15 @@ def test_record_history_matches_jax():
 
 def test_solve_distributed_one_rank():
     """solve_distributed on the 1x1 rank mesh is solve_ref bitwise; x0=None needs
-    no setup SpMV and equals a zero warm start; more ranks raise."""
+    no setup SpMV and equals a zero warm start; more ranks than the process
+    group holds (none here) raise."""
     _, ct, _, bt = _system((8, 8, 8))
     mesh = RankMesh(("data", "model"), (1, 1))
     kw = dict(tol=1e-6, maxiter=100, policy=tprec.F32, backend="fused")
     rd = tbi.solve_distributed(mesh, ct, bt, **kw)
     assert_bitwise(rd.x, tbi.solve_ref(ct, bt, **kw).x)
     assert_bitwise(rd.x, tbi.solve_distributed(mesh, ct, bt, torch.zeros_like(bt), **kw).x)
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(RuntimeError, match="process group of 4 ranks"):
         tbi.solve_distributed(RankMesh(("data", "model"), (2, 2)), ct, bt, **kw)
 
 
