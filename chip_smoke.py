@@ -168,7 +168,22 @@ Phases (one line of output each, JSON where it carries numbers):
    batch 1 (``prefill_32k``/``decode_32k`` with the batch cut from 32 and
    128).  (e) ``gemma3_12b`` at full width cut to one period (6 layers: 5
    windowed at 1,024, 1 global) over 4,096 + 16 tokens.  Every logit of
-   (c)-(e) must be finite.
+   (c)-(e) must be finite.  (f) The routed MoE, ``qwen2_moe_a2_7b``
+   (Qwen1.5-MoE-A2.7B: 60 experts, top 4, 4 shared): its smoke config as
+   in (a); its full width cut to 2 of 24 layers (the CPU side cannot hold
+   57 GB of f32 weights), card (f32) against CPU (f32) over 64 + 4 and
+   2,048 + 4 tokens (one group of 2,048 at capacity 171, as the serving
+   prefill's groups) with every routing call logged: a token whose CPU
+   router margin (k-th minus (k+1)-th probability) exceeds 1e-4 picks the
+   CPU's expert set on the card unless an earlier flip reached it, the
+   logits that no flip reached (causal attention, capacity positions in
+   token order) within 2^-10 of the CPU's largest, and the logit gap and
+   the tokens whose expert set differs recorded; then at full depth serving 8 x (2,048 +
+   128) as (c), with 5 decode steps under torch.profiler for the launches
+   per step, beside the decode bound over all weights (every expert runs
+   on its capacity buffer) and, labelled, over the active parameters, and
+   the prefill bound over each token's 4 experts' work beside, labelled,
+   the reference's capacity buffers and one-hot einsums.
 
 12. the multi-rank solve over ``torch.distributed``: the parent, whose
    kernels are built, starts four ranks on this one card under ``torchrun
@@ -195,10 +210,25 @@ Phases (one line of output each, JSON where it carries numbers):
    naming the world, backend and rank-to-device map with every rank's
    91 AllReduces and 240 permutes.  (e) The ``cavity_ghia`` cell on the 2x2
    fabric passes the Ghia bands within 1e-3 of phase 10a's centerline and
-   launches no kernel.  (d) Phase 4's run under ``torchrun`` with one nccl
-   rank: phase 4's residuals and launch counts bit for bit.  A rank that
-   fails, or ranks that pass their time limit (killed as a process group),
-   fail the phase.
+   launches no kernel.  (g) ``--refine`` (bf16_mixed inner solves): at the
+   default cell ``refine_block`` gathered equals the global-array
+   ``solve_refined(mesh=...)`` over the same ranks bit for bit, its rels
+   within 4 f32 ulps, ``2 + 3 n`` AllReduces per rank in each outer step
+   (plus 2), the one-rank refine's x within 1e-5 of max|x_true|, and the
+   CLI's ``--refine`` on the ranks; then the CLI at ``cs1_paper`` in
+   bf16_mixed, ms per outer step recorded without a limit, and beside it
+   (in (d)'s one nccl rank) the one-rank ``--refine`` on the same system:
+   its residual after the first correction within 2 x the ranks', both
+   trajectories recorded (inner solves that run to their cap of 60 can
+   raise the residual in the reference's refinement too).  (h) The n = 128
+   transient cavity on the 2x2 fabric (dt 0.05, 6 steps x 3 outers, a
+   checkpoint every 2 steps) with a fault on rank 1 alone at step 3: every
+   rank's replay equals the uninterrupted march bit for bit, and the parent
+   restores the ranks' checkpoint on one rank of the card, equal to their
+   state.  Neither launches a kernel.  (d) Phase 4's run under ``torchrun``
+   with one nccl rank: phase 4's residuals and launch counts bit for bit.
+   A rank that fails, or ranks that pass their time limit (killed as a
+   process group), fail the phase.
 
 ``--profile`` adds a torch.profiler trace of a few iterations of each
 measured path (phases 4, 5, 7 and 8b) and of 5 decode steps of 11c:
@@ -1968,6 +1998,16 @@ LM_F32_TOL = {"smoke": 16 * EPS_F32, "wide": 2.0 ** -10}
 #: bf16 logits: the card's bf16 run may be at most this many times further
 #: from the CPU's f32 run than the CPU's own bf16 run is
 LM_BF16_FACTOR = 2.0
+#: 11f: the routed MoE (Qwen1.5-MoE-A2.7B), card against CPU at full width
+#: cut to LM_MOE_LAYERS of 24 layers (57 GB of f32 weights do not fit the
+#: CPU side), over LM_MOE_WIDE: 64 prompt tokens (one group of 64, capacity
+#: 6) and 2,048 (one group of 2,048, capacity 171: the serving prefill's
+#: group), then served at full depth at LM_SERVE
+LM_MOE = "qwen2_moe_a2_7b"
+LM_MOE_WIDE, LM_MOE_LAYERS = ((1, 64, 4), (1, 2048, 4)), 2
+#: a token whose k-th and (k+1)-th router probabilities (the CPU's) are more
+#: than this apart must pick the same expert set on the card
+LM_MOE_MARGIN = 1e-4
 
 
 def lm_models(torch, cfg, tree, device, dtype):
@@ -1983,17 +2023,35 @@ def lm_models(torch, cfg, tree, device, dtype):
                        else t.dtype), tree))
 
 
-def lm_run(torch, cfg, model, tokens, steps: int, forced=None):
+def lm_run(torch, cfg, model, tokens, steps: int, forced=None, keep_prefill: bool = False):
     """Prefill + ``steps`` decodes; returns every step's last-position logits
-    as one f32 CPU tensor (steps + 1, B, V) and the tokens fed to the
-    decodes (the greedy ones unless ``forced``)."""
+    as one f32 CPU tensor (steps + 1, B, V), the tokens fed to the decodes
+    (the greedy ones unless ``forced``), and with ``keep_prefill`` the
+    prefill's logits at every position as an f32 CPU tensor (B, T, V)."""
     from repro_torch.models import model as M
+
+    from repro_torch.models import transformer
 
     dev = model.embed.device
     B, T = tokens.shape
     caches = M.init_caches(cfg, B, T + steps, dev)
-    logits, caches = M.make_prefill_step(cfg, M.SHAPES["prefill_32k"])(
-        model, {"tokens": tokens.to(dev)}, caches)
+    real, seen = transformer.forward, {}
+
+    def spy(*a, **kw):              # the prefill's final hidden, every position
+        out = real(*a, **kw)
+        seen["hidden"] = out[0]
+        return out
+
+    transformer.forward = spy if keep_prefill else real
+    try:
+        logits, caches = M.make_prefill_step(cfg, M.SHAPES["prefill_32k"])(
+            model, {"tokens": tokens.to(dev)}, caches)
+    finally:
+        transformer.forward = real
+    every = None
+    if keep_prefill:
+        with torch.inference_mode():
+            every = transformer.apply_head(cfg, model, seen.pop("hidden")).float().cpu()
     serve = M.make_serve_step(cfg)
     out, fed = [logits[:, -1].float().cpu()], []
     for s in range(steps):
@@ -2001,7 +2059,7 @@ def lm_run(torch, cfg, model, tokens, steps: int, forced=None):
         fed.append(tok)
         logits, caches = serve(model, {"token": tok[:, None].to(dev)}, caches)
         out.append(logits[:, -1].float().cpu())
-    return torch.stack(out), torch.stack(fed)
+    return torch.stack(out), torch.stack(fed), every
 
 
 def lm_card_vs_cpu(torch, cfg, tree, shape, f32_tol: float) -> dict:
@@ -2018,7 +2076,7 @@ def lm_card_vs_cpu(torch, cfg, tree, shape, f32_tol: float) -> dict:
         for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             c, model = lm_models(torch, cfg, tree, dev, dt)
             forced = runs["cpu_f32"][1] if runs else None
-            runs[f"{side}_{name}"] = lm_run(torch, c, model, tokens, steps, forced)
+            runs[f"{side}_{name}"] = lm_run(torch, c, model, tokens, steps, forced)[:2]
             del model
             torch.cuda.empty_cache()
     cpu32, cpu16 = runs["cpu_f32"][0], runs["cpu_bf16"][0]
@@ -2052,6 +2110,126 @@ def lm_card_vs_cpu(torch, cfg, tree, shape, f32_tol: float) -> dict:
     return out
 
 
+class RouteLog:
+    """Records every MoE routing call (``models/moe.py:route``) while
+    active: each token's ordered choices ``e_idx`` (n, g, k) and its margin,
+    the least gap between consecutive router probabilities among its k + 1
+    largest (an order swap inside the top k moves capacity positions too),
+    on the host."""
+
+    def __init__(self):
+        self.calls: list[tuple] = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._real = real = moe.route
+
+        def spy(router, xt, *, top_k, **kw):
+            probs, w, e_idx = real(router, xt, top_k=top_k, **kw)
+            top = probs.sort(dim=-1, descending=True).values[..., :top_k + 1]
+            margin = (top[..., :-1] - top[..., 1:]).min(-1).values.reshape(-1).cpu()
+            self.calls.append((e_idx.cpu(), margin))
+            return probs, w, e_idx
+
+        moe.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route = self._real
+
+
+def moe_kept(torch, e_idx, cap: int, n_experts: int, dispatch: str):
+    """(n, g, k) bool: which of each token's choices its expert's capacity
+    buffer keeps, with the slots numbered as ``dispatch`` numbers them
+    (einsum: choice rank by choice rank; scatter: token by token)."""
+    n, g, k = e_idx.shape
+    oh = torch.nn.functional.one_hot(e_idx, n_experts)
+    order = oh if dispatch == "scatter" else oh.transpose(1, 2)
+    flat = order.reshape(n, g * k, n_experts)
+    pos = ((torch.cumsum(flat, dim=1) - flat) * flat).sum(-1).reshape(order.shape[:3])
+    return (pos if dispatch == "scatter" else pos.transpose(1, 2)) < cap
+
+
+def lm_moe_card_vs_cpu(torch, cfg, tree, shape, f32_tol: float) -> dict:
+    """One MoE model's weights served on the card and on the CPU in f32,
+    every decode fed the CPU's greedy tokens, every routing call logged.
+
+    A token's output can differ from the CPU's for two reasons only: its
+    input differs (reached), or its kept choices do (another ordered expert
+    list, or a capacity drop that moved).  So, call by call, the tokens
+    whose input no difference has reached (through causal attention: the
+    later positions of a sequence, and in the decodes the whole sequence)
+    must keep the CPU's ordered choices wherever the CPU's margin exceeds
+    ``LM_MOE_MARGIN``, and every logit row that no difference reached is
+    held within ``f32_tol`` of the CPU's largest |logit|.  Near-tie flips
+    and the rows they reach are counted either way."""
+    from repro_torch.models.moe import capacity
+
+    B, T, steps = shape
+    tokens = torch.randint(0, cfg.vocab, (B, T), generator=torch.Generator().manual_seed(11))
+    runs = {}
+    for side, dev in (("cpu", "cpu"), ("card", "cuda")):
+        c, model = lm_models(torch, cfg, tree, dev, torch.float32)
+        with RouteLog() as log:
+            logits, fed, every = lm_run(torch, c, model, tokens, steps,
+                                        runs["cpu"][1] if runs else None, keep_prefill=True)
+        runs[side] = (logits, fed, every, log.calls)
+        del model
+        torch.cuda.empty_cache()
+    (cpu, _, cpu_all, cpu_calls), (card, _, card_all, card_calls) = runs["cpu"], runs["card"]
+    L, V = cfg.n_layers, cpu.shape[-1]
+    check(len(cpu_calls) == len(card_calls) == L * (steps + 1),
+          f"11f {cfg.name}: {len(cpu_calls)} / {len(card_calls)} routing calls")
+    held = {0: (cpu_all.reshape(-1, V), card_all.reshape(-1, V))}
+    held.update({s: (cpu[s], card[s]) for s in range(1, steps + 1)})
+    reached = torch.zeros(B, T, dtype=torch.bool)   # prefill tokens whose output may differ
+    seq = torch.zeros(B, dtype=torch.bool)          # sequences a difference reached
+    sets = orders = drops = near = decisive = rows = 0
+    gaps = []
+    for i, ((ec, mc), (ed, _)) in enumerate(zip(cpu_calls, card_calls)):
+        step, layer = divmod(i, L)
+        r_in = reached.cummax(dim=1).values.reshape(-1) if step == 0 else seq.clone()
+        cap = capacity(ec.shape[1], cfg.n_experts, cfg.top_k)
+        order = (ec != ed).any(-1).reshape(-1)
+        kept = (moe_kept(torch, ec, cap, cfg.n_experts, cfg.moe_dispatch)
+                != moe_kept(torch, ed, cap, cfg.n_experts, cfg.moe_dispatch)).any(-1).reshape(-1)
+        sets += int((ec.sort(-1).values != ed.sort(-1).values).any(-1).sum())
+        orders += int(order.sum())
+        drops += int((kept & ~order).sum())
+        near += int((mc <= LM_MOE_MARGIN).sum())
+        decisive += int((order & ~r_in & (mc > LM_MOE_MARGIN)).sum())
+        r_out = r_in | order | kept
+        if step == 0:
+            reached = r_out.reshape(B, T)
+            seq |= reached.any(dim=1)
+        else:
+            seq |= r_out
+        if layer == L - 1:          # the step's logits where no difference reached
+            a, b = (t[~r_out] for t in held[step])
+            rows += a.shape[0]
+            if a.numel():
+                gaps.append(float((b - a).abs().max()))
+    gap = max(gaps, default=0.0)
+    tol = f32_tol * float(cpu.abs().max())
+    out = dict(f32_err=gap, f32_tol=tol, f32_err_rel=gap / float(cpu.abs().max()),
+               logit_rows_held=rows, logit_rows=B * T + B * steps,
+               f32_err_last_positions_all=float((card - cpu).abs().max()),
+               routed_tokens=sum(len(m) for _, m in cpu_calls),
+               tokens_expert_set_differs=sets, tokens_choice_order_differs=orders,
+               tokens_drops_differ=drops, tokens_within_margin=near, margin=LM_MOE_MARGIN,
+               finite=bool(torch.isfinite(card).all() and torch.isfinite(card_all).all()))
+    check(out["finite"], f"11f {cfg.name}: non-finite logits")
+    check(decisive == 0, f"11f {cfg.name}: {decisive} tokens with router margin > "
+                         f"{LM_MOE_MARGIN} picked other experts on the card before any "
+                         f"difference reached them")
+    check(rows > 0 and gap <= tol, f"11f {cfg.name}: f32 card vs CPU {gap!r} > {tol!r} over "
+                                   f"the {rows} logit rows no difference reached")
+    return out
+
+
 def lm_param_bytes(cfg) -> int:
     from repro_torch.models.param import tree_leaves
     from repro_torch.models.transformer import build_model_defs
@@ -2070,6 +2248,25 @@ def lm_keys_per_layer(cfg, T: int) -> list[int]:
     return out
 
 
+def lm_moe_ops(cfg, n_tok: int, capacity_buffers: bool = False) -> int:
+    """The routed experts' operations over ``n_tok`` tokens in every layer:
+    each token's ``top_k`` experts (3 matrices of d x d_ff_expert), the
+    work the function needs.  With ``capacity_buffers``, what the einsum
+    dispatch runs instead: each group's every expert on its whole capacity
+    buffer, and the dispatch and combine einsums over the (g, E, cap)
+    masks.  0 for a dense model."""
+    if not cfg.n_experts:
+        return 0
+    from repro_torch.models.moe import capacity, tokens_per_group
+
+    expert = 2 * 3 * cfg.d_model * cfg.d_ff_expert
+    if not capacity_buffers:
+        return cfg.n_layers * n_tok * cfg.top_k * expert
+    g = tokens_per_group(n_tok, cfg.moe_group_size)
+    slots = (n_tok // g) * cfg.n_experts * capacity(g, cfg.n_experts, cfg.top_k)
+    return cfg.n_layers * (slots * expert + 2 * 2 * g * slots * cfg.d_model)
+
+
 def lm_bounds(cfg, B: int, T: int, steps: int) -> dict:
     """The least time the card could take (ms): the prefill's operations at
     989 TFLOP/s or its bytes (weights read once, the cache written once) at
@@ -2078,22 +2275,28 @@ def lm_bounds(cfg, B: int, T: int, steps: int) -> dict:
     to its length or window, at the steps' mean length) or operations."""
     d, H, K, Dh, F, V = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_ff, cfg.vocab
     mlp = (3 if cfg.act in ("swiglu", "geglu") else 2) * d * F
+    if cfg.n_experts:        # shared experts (n_shared x d_ff_expert) and the router
+        mlp = 3 * d * cfg.n_shared_experts * cfg.d_ff_expert + d * cfg.n_experts
     per_layer = 2 * d * H * Dh + 2 * d * K * Dh + mlp
     w_bytes = lm_param_bytes(cfg)
     item = 2
     kv_tok = cfg.n_layers * 2 * K * Dh * item
     attn = sum(4 * B * H * Dh * k for k in lm_keys_per_layer(cfg, T))
-    pre_ops = 2 * B * T * cfg.n_layers * per_layer + attn + 2 * B * d * V
+    pre_ops = 2 * B * T * cfg.n_layers * per_layer + attn + 2 * B * d * V + lm_moe_ops(cfg, B * T)
     pre_bytes = w_bytes + B * T * kv_tok
     lens = [T + s + 1 for s in range(steps)]
     kv_read = sum(sum(B * min(L, spec.window or L) * 2 * K * Dh * item
                       for spec in cfg.layer_specs()) for L in lens) / len(lens)
-    dec_ops = 2 * B * (cfg.n_layers * per_layer + d * V) + sum(
+    dec_ops = 2 * B * (cfg.n_layers * per_layer + d * V) + lm_moe_ops(cfg, B) + sum(
         sum(4 * B * H * Dh * min(L, spec.window or L) for spec in cfg.layer_specs())
         for L in lens) / len(lens)
     pre = max(pre_ops / PEAK_BF16_FLOPS, pre_bytes / PEAK_BYTES_PER_S) * 1e3
     dec = max(dec_ops / PEAK_BF16_FLOPS, (w_bytes + kv_read) / PEAK_BYTES_PER_S) * 1e3
+    # the reference's capacity buffers and one-hot einsums, beside the bound
+    pre_cap = pre_ops - lm_moe_ops(cfg, B * T) + lm_moe_ops(cfg, B * T, capacity_buffers=True)
     return dict(weight_bytes=w_bytes, prefill_flops=pre_ops, prefill_bound_ms=pre,
+                prefill_capacity_buffer_flops=pre_cap,
+                prefill_capacity_buffer_ms=pre_cap / PEAK_BF16_FLOPS * 1e3,
                 prefill_bound_by="operations" if pre_ops / PEAK_BF16_FLOPS
                 > pre_bytes / PEAK_BYTES_PER_S else "bytes",
                 decode_bytes=w_bytes + kv_read, decode_flops=dec_ops, decode_bound_ms=dec,
@@ -2209,6 +2412,8 @@ def phase11(torch, smi: str, profile: bool = False) -> dict:
     out["window"] = lm_serve(torch, smi, gemma, LM_WINDOW, "gemma3_one_period_4096",
                              cut="depth 48 -> 6 (one period: 5 windowed layers, 1 global)")
 
+    out["moe"] = phase11f(torch, smi)
+
     after = launch_counts()
     check(after == before, f"11: the LM runs launched kernels: {before} -> {after}")
     out["kernel_launches"] = {k: after[k] - before[k] for k in after}
@@ -2222,6 +2427,65 @@ def phase11(torch, smi: str, profile: bool = False) -> dict:
     return out
 
 
+def phase11f(torch, smi: str) -> dict:
+    """11f (module docstring): Qwen1.5-MoE-A2.7B, the smoke config and a
+    2-layer full-width cut held to the CPU, then served at full depth."""
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.models import model as M
+    from repro_torch.models.param import init_tree
+    from repro_torch.models.transformer import build_model_defs
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    out: dict = {}
+    cfg = get_smoke(LM_MOE)
+    tree = init_tree(build_model_defs(cfg), torch.Generator(dev).manual_seed(0), dev)
+    out["smoke"] = lm_card_vs_cpu(torch, cfg, tree, LM_SMOKE, LM_F32_TOL["smoke"])
+    emit(dict(phase="lm_moe_smoke_card_vs_cpu", card=smi, arch=cfg.name, batch=LM_SMOKE[0],
+              prompt=LM_SMOKE[1], decode_steps=LM_SMOKE[2], **out["smoke"]))
+
+    full = get_config(LM_MOE)
+    cut = dataclasses.replace(full, n_layers=LM_MOE_LAYERS)
+    tree = init_tree(build_model_defs(cut), torch.Generator(dev).manual_seed(0), dev)
+    from repro_torch.models.moe import capacity, tokens_per_group
+
+    out["wide"] = []
+    for shape in LM_MOE_WIDE:
+        g = tokens_per_group(shape[0] * shape[1], cut.moe_group_size)
+        rec = dict(batch=shape[0], prompt=shape[1], decode_steps=shape[2], group=g,
+                   capacity=capacity(g, cut.n_experts, cut.top_k),
+                   **lm_moe_card_vs_cpu(torch, cut, tree, shape, LM_F32_TOL["wide"]))
+        out["wide"].append(rec)
+        emit(dict(phase="lm_moe_full_width_card_vs_cpu", card=smi, arch=cut.name,
+                  n_layers=cut.n_layers, cut=f"depth {full.n_layers} -> {cut.n_layers}",
+                  **rec))
+    del tree
+    torch.cuda.empty_cache()
+
+    serve = lm_serve(torch, smi, full, LM_SERVE, "moe_serve_8x2048", reps=2, profile=True)
+    B, T, new = LM_SERVE
+    kv_read = serve["decode_bytes"] - serve["weight_bytes"]
+    active = M.n_active_params(full) * 2
+    out["serve"] = dict(
+        prefill_ms=[r["prefill_ms"] for r in serve["runs"]],
+        decode_ms_per_step=[r["decode_ms_per_step"] for r in serve["runs"]],
+        decode_tokens_per_s=[r["decode_tokens_per_s"] for r in serve["runs"]],
+        prefill_tokens_per_s=[r["prefill_tokens_per_s"] for r in serve["runs"]],
+        peak_memory_gb=serve["runs"][0]["peak_memory_gb"],
+        launches_per_decode_step=serve["profile"]["launches"] / PROFILE_ITERS,
+        decode_idle_share=serve["profile"]["idle_share"],
+        prefill_bound_ms=serve["prefill_bound_ms"], prefill_bound_by=serve["prefill_bound_by"],
+        prefill_capacity_buffer_ms=serve["prefill_capacity_buffer_ms"],
+        decode_bound_ms=serve["decode_bound_ms"], decode_bound_by=serve["decode_bound_by"],
+        decode_bound_active_params_ms=(active + kv_read) / PEAK_BYTES_PER_S * 1e3,
+        n_params=M.n_params(full), n_active_params=M.n_active_params(full),
+        kv_cache_gb=serve["kv_cache_gb"])
+    out["seconds"] = time.perf_counter() - t0
+    emit(dict(phase="lm_moe_serve", card=smi, arch=full.name, n_layers=full.n_layers,
+              batch=B, prompt=T, new_tokens=new, seconds=out["seconds"], **out["serve"]))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 12: the multi-rank solve, four gloo ranks sharing the one card
 # ---------------------------------------------------------------------------
@@ -2232,7 +2496,11 @@ P12_APPLY = [(DEFAULT_MESH, "star7"), (PAPER_MESH, "star7"), (FAMILY_MESH, "box2
              (FAMILY_MESH, "star25")]
 P12_BATCHES = (0, 3)
 #: the ranks' own time limit (a torchrun launch), and the world-of-1 run's
-P12_TIMEOUT, P12D_TIMEOUT = 480, 240
+P12_TIMEOUT, P12D_TIMEOUT = 720, 360
+#: 12g at cs1_paper: the four ranks' and the one rank's relative residual
+#: after the first correction solve (same system, dots summed in other
+#: orders) agree within this factor
+P12G_FIRST_STEP_FACTOR = 2.0
 #: the hash multipliers of :func:`hashed_field`, one per axis (batch first)
 _HASH = (73856093, 19349663, 83492791, 2654435761)
 
@@ -2421,15 +2689,123 @@ def p12_rank_part(torch, device, out_dir: Path) -> dict:
                        kernel_launches={k: after[k] - before[k] for k in after if
                                         after[k] != before[k]},
                        seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    out["refine"] = p12_refine(torch, device)
+    out["refine_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["march"] = p12_march(torch, device, out_dir)
+    out["march_s"] = time.perf_counter() - t0
     return out
 
 
+#: 12g: the one-rank refine's x against the four ranks', as a share of
+#: max|x_true|; the ranks' rels against the global-array refine's, in f32 ulps
+P12G_X_TOL, P12G_RELS_ULP = 1e-5, 4
+#: 12h: the 2x2 transient cavity, its checkpoints and the fault on rank 1
+P12H_N, P12H_STEPS, P12H_OUTERS, P12H_EVERY, P12H_FAULT = 128, 6, 3, 2, 3
+
+
+def p12_refine(torch, device) -> dict:
+    """12g on each rank: ``refine_block`` at the default cell against the
+    global-array ``solve_refined(mesh=...)`` over the same ranks and (rank
+    0) the one-rank refine, the CLI's ``--refine`` there and at
+    ``cs1_paper``, and the kernel launches of all of it."""
+    from repro_torch.core import bicgstab, dist, halo, precision, stencil
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import solve as cli
+    from repro_torch.launch.mesh import make_mesh_for_devices
+    from repro_torch.obs import metrics as obs_metrics
+
+    reset_launch_counts()
+    mesh = make_mesh_for_devices(P12_WORLD)
+    fabric = halo.FabricAxes.from_mesh(mesh)
+    _, cf = cli.manufactured_problem(None, stencil.STAR7, DEFAULT_MESH, seed=0, device=device)
+    xt = cli.manufactured_solution(DEFAULT_MESH, seed=0, device=device)
+    b = stencil.rhs_for_solution(cf, xt)
+    xg, rels_g = bicgstab.solve_refined(cf, b, mesh=mesh, inner_policy=precision.MIXED)
+    ar0 = obs_metrics.counter("comm.allreduce").value
+    xb, rels_b, inner = bicgstab.refine_block(mesh, halo.local_coeffs(cf, fabric),
+                                              halo.local_block(b, fabric),
+                                              inner_policy=precision.MIXED)
+    allreduce = obs_metrics.counter("comm.allreduce").value - ar0
+    xb = halo.gather_blocks(xb, fabric)
+    out = dict(x_equal=bool(torch.equal(xb, xg)), rels=rels_b.tolist(),
+               rels_global=rels_g.tolist(), inner_iterations=inner, allreduce=allreduce,
+               max_err=float((xb - xt).abs().max()), x_true_max=float(xt.abs().max()))
+    if dist.is_root():
+        x1, rels_1 = bicgstab.solve_refined(cf, b, inner_policy=precision.MIXED)
+        out.update(one_rank_gap=float((xb - x1).abs().max()), rels_one_rank=rels_1.tolist())
+    del cf, b, xg, xb, xt
+    launches = dict(direct={k: n for k, n in launch_counts().items() if n})
+    res, launches["cli"] = p12_cli(["--refine", "--policy", "bf16_mixed"])
+    out["cli"] = {k: res[k] for k in ("refine_rel_residuals", "max_err", "inner_iterations",
+                                      "collectives")}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, launches["paper_mesh"] = p12_cli(["--refine", "--policy", "bf16_mixed",
+                                           "--mesh", *(str(s) for s in PAPER_MESH)])
+    out["paper_mesh"] = dict({k: res[k] for k in ("refine_rel_residuals", "max_err",
+                                                  "inner_iterations", "collectives",
+                                                  "wall_s")},
+                             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    torch.cuda.empty_cache()
+    out["kernel_launches"] = {k: v for k, v in launches.items() if v}
+    return out
+
+
+def p12_march(torch, device, out_dir: Path) -> dict:
+    """12h on each rank: the 2x2 transient cavity uninterrupted, then
+    checkpointed with a fault injected on rank 1 alone; rank 0 keeps its
+    final state beside the checkpoints for the parent's restore."""
+    from repro_torch.apps.cfd import CFDConfig, SolverOptions, TransientConfig, run_transient
+    from repro_torch.core import dist
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.mesh import make_mesh_for_devices
+    from repro_torch.obs import metrics as obs_metrics
+
+    before = launch_counts()
+    mesh = make_mesh_for_devices(P12_WORLD)
+    cfg, opts = CFDConfig(n=P12H_N, reynolds=100.0), SolverOptions(backend="spmd")
+    tcfg = TransientConfig(dt=0.05, n_steps=P12H_STEPS, outers_per_step=P12H_OUTERS,
+                           checkpoint_every=P12H_EVERY)
+    t0 = time.perf_counter()
+    ref, ref_m = run_transient(cfg, tcfg, opts, mesh, device=device)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    armed = {"v": dist.rank() == 1}
+
+    def hook(step):
+        if step == P12H_FAULT and armed["v"]:
+            armed["v"] = False
+            raise RuntimeError("injected fault")
+
+    restarts = obs_metrics.counter("runner.restarts").value
+    state, metrics = run_transient(cfg, tcfg, opts, mesh, device=device,
+                                   checkpoint_dir=str(out_dir / "march"), failure_hook=hook)
+    if dist.is_root():
+        torch.save([t.cpu() for t in state], out_dir / "march_state.pt")
+    after = launch_counts()
+    return dict(replay_equal=all(bool(torch.equal(a, b)) for a, b in zip(state, ref)),
+                metrics_equal=metrics == ref_m, steps=[m["step"] for m in metrics],
+                restarts=obs_metrics.counter("runner.restarts").value - restarts,
+                ms_per_step=t_ref / tcfg.n_steps * 1e3,
+                final_continuity=ref_m[-1]["continuity"],
+                kernel_launches={k: after[k] - before[k] for k in after
+                                 if after[k] != before[k]})
+
+
 def p12_world_of_one(torch, device) -> dict:
-    """12d: phase 4's run under torchrun with one nccl rank."""
+    """12d: phase 4's run under torchrun with one nccl rank; then 12g's
+    one-rank witness, the CLI's ``--refine`` at ``cs1_paper`` (same seed)."""
     res, counts = run_cli_quiet(["--mesh", *(str(s) for s in PAPER_MESH), "--backend",
                                  "fused", "--policy", "bf16_mixed", "--tol", "0",
                                  "--maxiter", str(MAIN_ITERS), "--dist-backend", "nccl"])
-    return dict(res, launches=counts)
+    torch.cuda.empty_cache()
+    ref, _ = run_cli_quiet(["--refine", "--policy", "bf16_mixed", "--mesh",
+                            *(str(s) for s in PAPER_MESH), "--dist-backend", "nccl"])
+    return dict(res, launches=counts, refine_paper_mesh={
+        k: ref[k] for k in ("refine_rel_residuals", "max_err", "inner_iterations", "wall_s")})
 
 
 def rank_main(part: str, out_dir: Path) -> int:
@@ -2489,6 +2865,85 @@ def p12_expected(iters: int, ring_patches: int) -> dict:
     counts = {k: n for k, n in expected_counts(iters).items() if n}
     counts["stencil_nd"] = 2 * iters * (1 + ring_patches)
     return counts
+
+
+def f32_ulps(a, b) -> float:
+    """The largest gap between two lists of floats, in f32 ulps of the larger."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    gap = np.abs(a.astype(np.float64) - b) / np.spacing(np.maximum(np.abs(a), np.abs(b)))
+    return float(gap.max())
+
+
+def p12g_checks(recs: list[dict], label: str, smi: str) -> dict:
+    """12g: ``refine_block`` and the CLI's ``--refine`` on the four ranks."""
+    r0 = recs[0]["refine"]
+    for rec in recs:
+        g = rec["refine"]
+        check(g["x_equal"], f"12g rank {rec['rank']}: refine_block's x differs from the "
+                            f"global-array solve_refined(mesh=...)")
+        check(f32_ulps(g["rels"], g["rels_global"]) <= P12G_RELS_ULP,
+              f"12g rank {rec['rank']}: rels {g['rels']} vs {g['rels_global']}")
+        n = g["inner_iterations"]
+        check(g["allreduce"] == 2 + sum(2 + 3 * k for k in n),
+              f"12g rank {rec['rank']}: {g['allreduce']} AllReduces for inner {n}")
+        check(rec["refine"]["cli"]["collectives"] == r0["cli"]["collectives"],
+              f"12g rank {rec['rank']}: CLI collectives differ from rank 0's")
+        check(not g["kernel_launches"], f"12g rank {rec['rank']}: the refine launched "
+                                        f"{g['kernel_launches']}")
+    tol = P12G_X_TOL * r0["x_true_max"]
+    check(r0["one_rank_gap"] <= tol, f"12g: x {r0['one_rank_gap']!r} from the one-rank "
+                                     f"refine (> {tol!r})")
+    check(r0["rels"][-1] < 1e-5 and r0["cli"]["refine_rel_residuals"][-1] < 1e-5,
+          f"12g: refined residuals {r0['rels'][-1]!r}, CLI {r0['cli']['refine_rel_residuals']}")
+    pm = r0["paper_mesh"]
+    check(all(math.isfinite(v) for v in pm["refine_rel_residuals"])
+          and pm["refine_rel_residuals"][-1] < pm["refine_rel_residuals"][0],
+          f"12g cs1_paper: residuals {pm['refine_rel_residuals']}")
+    outer = len(pm["inner_iterations"])
+    out = dict(default=dict({k: r0[k] for k in ("rels", "rels_global", "rels_one_rank",
+                                                "inner_iterations", "allreduce", "max_err",
+                                                "one_rank_gap")},
+                            allreduce_per_outer_step=[2 + 3 * k for k in r0["inner_iterations"]],
+                            cli=r0["cli"]),
+               paper_mesh=dict(pm, ms_per_outer_step=[rec["refine"]["paper_mesh"]["wall_s"]
+                                                      * 1e3 / outer for rec in recs],
+                               inner_iterations_total=sum(pm["inner_iterations"])),
+               seconds=recs[0]["refine_s"])
+    emit(dict(phase="ranks_refine", label=label, card=smi, **out))
+    return out
+
+
+def p12h_checks(torch, recs: list[dict], out_dir: Path, label: str, smi: str) -> dict:
+    """12h: the 2x2 checkpointed march with a fault on rank 1, and its
+    checkpoint restored on one rank of the card."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    for rec in recs:
+        m = rec["march"]
+        check(m["replay_equal"] and m["metrics_equal"],
+              f"12h rank {rec['rank']}: the replayed march differs from the uninterrupted one")
+        check(m["steps"] == list(range(P12H_STEPS)) and m["restarts"] == 1,
+              f"12h rank {rec['rank']}: steps {m['steps']}, restarts {m['restarts']}")
+        check(not m["kernel_launches"], f"12h rank {rec['rank']}: the march launched "
+                                        f"{m['kernel_launches']}")
+    dev = torch.device("cuda")
+    like = (tuple(torch.zeros(P12H_N, P12H_N, device=dev) for _ in range(3)), ())
+    (restored, _), step = CheckpointManager(str(out_dir / "march")).restore_latest(like)
+    ranks_state = torch.load(out_dir / "march_state.pt")
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(restored, ranks_state))
+    check(step == P12H_STEPS and same, f"12h: the ranks' checkpoint (step {step}) restored "
+                                       f"on one rank of the card differs from their state")
+    m = recs[0]["march"]
+    out = dict(n=P12H_N, steps=P12H_STEPS, outers_per_step=P12H_OUTERS,
+               checkpoint_every=P12H_EVERY, fault_step=P12H_FAULT, fault_rank=1,
+               replay_bitwise=all(r["march"]["replay_equal"] for r in recs),
+               restore_on_one_rank_bitwise=same, restored_step=step,
+               ms_per_step=[r["march"]["ms_per_step"] for r in recs],
+               final_continuity=m["final_continuity"], seconds=recs[0]["march_s"])
+    emit(dict(phase="ranks_checkpointed_march", label=label, card=smi, **out))
+    return out
 
 
 def phase12(torch, smi: str, phase4: dict, ghia_centerline) -> dict:
@@ -2626,6 +3081,8 @@ def phase12(torch, smi: str, phase4: dict, ghia_centerline) -> dict:
         out["ghia"] = dict({k: v for k, v in g.items() if k != "centerline"},
                            centerline_gap=gap)
         emit(dict(phase="ranks_cfd_ghia", label=label, card=smi, **out["ghia"]))
+        out["refine"] = p12g_checks(recs, label, smi)
+        out["march"] = p12h_checks(torch, recs, out_dir, label, smi)
 
     # 12d: a world of one under nccl is phase 4 bit for bit
     one, _ = launch_ranks("world_of_one", 1, P12D_TIMEOUT)
@@ -2641,6 +3098,19 @@ def phase12(torch, smi: str, phase4: dict, ghia_centerline) -> dict:
                                    rel_residual=res["rel_residual"],
                                    true_rel_residual=res["true_rel_residual"])
         emit(dict(phase="world_of_one_nccl", card=smi, **out["world_of_one"]))
+        # 12g's witness: the one-rank refine at cs1_paper beside the ranks'
+        one_r = res["refine_paper_mesh"]
+        rels1 = one_r["refine_rel_residuals"]
+        four = out.get("refine", {}).get("paper_mesh", {}).get("refine_rel_residuals")
+        ratio = rels1[1] / four[1] if four and four[1] > 0 else float("nan")
+        check(all(math.isfinite(v) for v in rels1)
+              and 1 / P12G_FIRST_STEP_FACTOR <= ratio <= P12G_FIRST_STEP_FACTOR,
+              f"12g cs1_paper: one rank's residuals {rels1}, the four ranks' {four}")
+        one_r = dict(one_r, first_step_ratio_to_four_ranks=ratio,
+                     ms_per_outer_step=one_r["wall_s"] * 1e3 / len(one_r["inner_iterations"]))
+        out["refine_paper_mesh_one_rank"] = one_r
+        emit(dict(phase="refine_paper_mesh_one_rank_nccl", card=smi, four_ranks_rels=four,
+                  **one_r))
     out["seconds"] = time.perf_counter() - t0
     emit(dict(phase="ranks_clock", label=label, card=smi, seconds=out["seconds"]))
     return out

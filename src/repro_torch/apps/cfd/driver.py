@@ -470,15 +470,15 @@ def run_transient(cfg: CFDConfig, tcfg: TransientConfig,
     periodic (optionally async) checkpoints, restore-and-replay on any step
     failure, and resume-from-latest when the directory already holds a
     checkpoint — long runs survive preemption.  Restart is deterministic:
-    the restored state replays to bit-identical fields.
-    """
+    the restored state replays to bit-identical fields.  Across ranks the
+    gathered state is the same on every rank: rank 0 alone writes the
+    checkpoints, a ``failure_hook`` fault on any rank sends every rank back
+    to the same step, and a restore hands every rank rank 0's fields; an
+    exception inside a step on one rank ends the run
+    (``runtime/runner.py``)."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.runtime import FaultTolerantRunner, RunnerConfig
 
-    if checkpoint_dir is not None and dist.world_size() > 1:
-        raise NotImplementedError(
-            "a checkpointed march runs on one rank: every rank would write the same "
-            "checkpoint directory; drop --checkpoint-dir or torchrun")
     timestep = make_transient_step(cfg, tcfg, opts, mesh)
     state = cell_state(cfg, device=resolve_device(device))
 

@@ -12,7 +12,8 @@ Counterpart of ``repro/core/bicgstab.py``:
   CLI's entry);
 * :func:`make_iteration_fn`: one BiCGStab iteration as a plain function
   (the unit the paper measures);
-* :func:`solve_refined`: 16-bit inner solves with f32 iterative refinement;
+* :func:`solve_refined`: 16-bit inner solves with f32 iterative refinement,
+  and :func:`refine_block`, the same on this rank's block alone;
 * :func:`solve_ref_fused`: one block through the 7-point SpMV+dot epilogue
   kernels and the fused update passes (the per-chip reference schedule).
 
@@ -30,7 +31,7 @@ import torch
 from repro_torch.core import dist
 from repro_torch.core.comm import get_schedule
 from repro_torch.core.halo import (
-    FabricAxes, gather_blocks, global_apply, local_block, local_coeffs,
+    FabricAxes, gather_blocks, local_apply, local_block, local_coeffs,
 )
 from repro_torch.core.operator import make_operator
 from repro_torch.core.precision import F32, MIXED, Policy
@@ -178,35 +179,77 @@ def solve_refined(coeffs: StencilCoeffs, b: torch.Tensor, *, mesh=None, outer_it
 
     Residuals and the solution accumulate in f32; each correction solve runs
     in ``inner_policy``, through :func:`solve_ref` (reference backend) or,
-    with a ``mesh``, :func:`solve_distributed` (spmd backend, on every rank
-    of the mesh, with the f32 residuals from :func:`global_apply`).  Returns the
-    f32 solution and the relative true residual before each outer step and
-    after the last (``outer_iters + 1`` values).
+    with a ``mesh``, on every rank of the mesh: every rank takes its block by
+    its coordinates, runs :func:`refine_block`, and ``x`` is gathered back to
+    every rank.  Returns the f32 solution and the relative true residual
+    before each outer step and after the last (``outer_iters + 1`` values).
     """
+    if mesh is not None:
+        fabric = FabricAxes.from_mesh(mesh)
+        kw = dict(outer_iters=outer_iters, inner_maxiter=inner_maxiter, inner_tol=inner_tol,
+                  inner_policy=inner_policy)
+        if fabric.size == 1:
+            return refine_block(mesh, coeffs, b, **kw)[:2]
+        dist.check_fabric(fabric.size)
+        x, rels, _ = refine_block(mesh, local_coeffs(coeffs, fabric), local_block(b, fabric),
+                                  **kw)
+        return gather_blocks(x, fabric), rels
+
     cf32 = coeffs.astype(torch.float32)
-
-    def inner(rhs):
-        if mesh is None:
-            return solve_ref(coeffs, rhs, tol=inner_tol, maxiter=inner_maxiter,
-                             policy=inner_policy)
-        return solve_distributed(mesh, coeffs, rhs, tol=inner_tol, maxiter=inner_maxiter,
-                                 policy=inner_policy)
-
-    if mesh is None:
-        apply32 = lambda v: apply_ref(cf32, v, policy=F32)
-    else:
-        apply32 = lambda v: global_apply(mesh, cf32, v, policy=F32)
-
     b32 = b.to(torch.float32)
     x = torch.zeros_like(b32)
     bnorm = torch.clamp(torch.linalg.vector_norm(b32), min=EPS)
     rels = []
     for _ in range(outer_iters):
-        r = b32 - apply32(x)
+        r = b32 - apply_ref(cf32, x, policy=F32)
         rels.append(torch.linalg.vector_norm(r) / bnorm)
-        x = x + inner(r.to(inner_policy.storage)).x.to(torch.float32)
-    rels.append(torch.linalg.vector_norm(b32 - apply32(x)) / bnorm)
+        d = solve_ref(coeffs, r.to(inner_policy.storage), tol=inner_tol, maxiter=inner_maxiter,
+                      policy=inner_policy)
+        x = x + d.x.to(torch.float32)
+    rels.append(torch.linalg.vector_norm(b32 - apply_ref(cf32, x, policy=F32)) / bnorm)
     return x, torch.stack(rels)
+
+
+def refine_block(mesh, coeffs: StencilCoeffs, b: torch.Tensor, *, outer_iters: int = 4,
+                 inner_maxiter: int = 60, inner_tol: float = 1e-3,
+                 inner_policy: Policy = MIXED) -> tuple[torch.Tensor, torch.Tensor, list[int]]:
+    """:func:`solve_refined` on this rank's block: ``coeffs`` and ``b`` are
+    the rank's blocks, and ``x`` comes back as its block.
+
+    The f32 residual ``b - A x`` is the block apply after an f32 depth-r
+    exchange, and each correction solve :func:`solve_block` (spmd backend).
+    On one rank each norm is the f32 norm of the whole array, as the
+    meshless form's; on more, each rank's f64 sum of squares is summed
+    across the ranks by one AllReduce and its square root rounded to f32.
+    Returns ``(x, rels, inner_iterations)``: ``rels`` as
+    :func:`solve_refined`'s, and each correction solve's iteration count.
+    Per rank and outer step that is ``2 + 3 n`` AllReduces (the residual
+    norm, then the inner solve's ``1 + 3 n``), plus two for ``||b||`` and
+    the last residual.
+    """
+    fabric = FabricAxes.from_mesh(mesh)
+    dist.check_fabric(fabric.size)
+    cf32 = coeffs.astype(torch.float32)
+
+    def norm(v):
+        if fabric.size == 1:
+            return torch.linalg.vector_norm(v)
+        sq = dist.all_reduce_sum(torch.linalg.vector_norm(v, dtype=torch.float64).square())
+        return torch.sqrt(sq).to(torch.float32)
+
+    b32 = b.to(torch.float32)
+    x = torch.zeros_like(b32)
+    bnorm = torch.clamp(norm(b32), min=EPS)
+    rels, inner_iterations = [], []
+    for _ in range(outer_iters):
+        r = b32 - local_apply(cf32, x, fabric, policy=F32)
+        rels.append(norm(r) / bnorm)
+        d = solve_block(mesh, coeffs, r.to(inner_policy.storage), tol=inner_tol,
+                        maxiter=inner_maxiter, policy=inner_policy)
+        inner_iterations.append(int(d.iterations))
+        x = x + d.x.to(torch.float32)
+    rels.append(norm(b32 - local_apply(cf32, x, fabric, policy=F32)) / bnorm)
+    return x, torch.stack(rels), inner_iterations
 
 
 def solve_ref_fused(coeffs: StencilCoeffs, b: torch.Tensor, *, tol: float = 1e-6,

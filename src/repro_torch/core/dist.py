@@ -16,8 +16,9 @@ Every rank runs the same program on its own block.  This module gives it:
   JAX package counts its collective permutes.  Edge ranks get zeros, the
   Dirichlet boundary;
 * uncounted helpers that move whole blocks (:func:`all_gather`,
-  :func:`scatter_from_root`, :func:`barrier`), used where global arrays
-  enter or leave a run, never inside the solve loop.
+  :func:`scatter_from_root`, :func:`broadcast_from_root`, :func:`barrier`),
+  used where global arrays enter or leave a run (a checkpoint restore
+  among them), never inside the solve loop.
 
 Backends are chosen explicitly.  ``nccl`` puts one rank on each card and
 refuses a world larger than the card count.  ``gloo`` lets ranks share a
@@ -287,6 +288,27 @@ def scatter_from_root(blocks: list[torch.Tensor] | None, shape, dtype: torch.dty
     buf = torch.empty(nbytes, dtype=torch.uint8, device=device if nccl else "cpu")
     td.recv(buf, 0)
     return buf.view(dtype).reshape(tuple(shape)).to(device)
+
+
+def broadcast_object(obj):
+    """Rank 0's picklable ``obj`` on every rank (the others pass anything)."""
+    box = [obj]
+    _td().broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def broadcast_from_root(t: torch.Tensor) -> torch.Tensor:
+    """Rank 0's ``t`` on every rank: the others pass a tensor of the same
+    shape, dtype and device, whose values are not read.  The bytes travel
+    as they are, through the host when staged."""
+    staged = _staged(t)
+    wire = t.contiguous()
+    wire = (wire.cpu() if staged else wire).reshape(-1).view(torch.uint8).clone()
+    if staged:
+        _count_staged(wire.numel())
+    _td().broadcast(wire, src=0)
+    out = wire.view(t.dtype).reshape(t.shape)
+    return out.to(t.device) if staged else out
 
 
 def barrier() -> None:

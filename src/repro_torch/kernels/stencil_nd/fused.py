@@ -39,6 +39,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.stencil_nd.kernel import launch_plan
 from repro_torch.kernels.stencil_nd.ref import stencil7_dots_padded_ref
 
+#: the coefficient order the dot-epilogue kernel takes (xp, xm, yp, ym, zp, zm)
+ORDER = STAR7.names
 #: kernel launches in this process (CUDA tensors only), both variants
 launches = {"stencil7_dot": 0}
 
@@ -120,7 +122,7 @@ def _call(coeffs: StencilCoeffs, v: torch.Tensor, w: torch.Tensor | None, *, two
     if coeffs.spec != STAR7 or coeffs.diag is not None:
         raise ValueError("the dot-epilogue kernel is the unit-diagonal 7-point stencil; got "
                          f"{coeffs.spec.name}{'' if coeffs.diag is None else ' (raw diagonal)'}")
-    cfs = [coeffs.diags[n] for n in STAR7.names]
+    cfs = [coeffs.diags[n] for n in ORDER]
     for t in cfs if w is None else (w, *cfs):
         if t.dtype != v.dtype or t.shape != v.shape:
             raise ValueError(f"coefficients and w must match v ({v.dtype}{tuple(v.shape)}); "

@@ -23,7 +23,8 @@ as ``launch/solve.py``.  The 2D fields have no CUDA kernel, so only the
 ``--device cpu`` is given, and refuses to start without one.  Under
 ``torchrun`` (``spmd``) every rank runs the SIMPLE iteration on its block of
 a 2D rank fabric that must divide ``--n`` (``--dist-backend`` as in
-``launch/solve.py``); rank 0 alone prints and writes the run bundle.
+``launch/solve.py``); rank 0 alone prints and writes the run bundle, and a
+checkpointed march's checkpoints (every rank resumes from them).
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from repro_torch.core.precond import PRECONDS
 from repro_torch.core.solvers import SOLVERS
 from repro_torch.device import device_name, synchronize
 from repro_torch.launch.mesh import make_mesh_for_devices
-from repro_torch.launch.solve import join_ranks, root_prints
+from repro_torch.launch.solve import join_ranks, leave_ranks, root_prints
 from repro_torch.obs import manifest as obs_manifest
 
 
@@ -121,12 +122,15 @@ def main(argv=None) -> dict:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device (torch.cuda.is_available() is False); "
                          "pass --device cpu to run on the CPU")
+    own_group = dist.launched() and not dist.initialized()
     device = join_ranks(args.dist_backend, args.device)
     args.obs = args.obs or args.profile or args.run_dir is not None
     with root_prints():
-        if not args.obs:
-            return run(args, device)
-        return obs_manifest.run_bundled("cfd", args, device, run)
+        out = (obs_manifest.run_bundled("cfd", args, device, run) if args.obs
+               else run(args, device))
+    if own_group:
+        leave_ranks()
+    return out
 
 
 def run(args: argparse.Namespace, device: torch.device) -> dict:

@@ -16,6 +16,8 @@ a ``torchrun`` group.
         --device cpu --mesh 16 16 8 --policy f32
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.solve \
         --backend fused --dist-backend gloo       # 4 ranks sharing one card
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.solve \
+        --device cpu --mesh 16 16 8 --refine      # refinement, every rank on its block
 
 Counterpart of ``python -m repro.launch.solve``, with its flag names and
 defaults: builds a diagonally dominant system of the requested stencil shape,
@@ -41,7 +43,9 @@ on the CPU, lets ranks share a card).  Uniform problems are built block by
 block; a random system and the manufactured solution are drawn once, on
 rank 0, which hands each rank its block.  ``b``, the true residual and the
 collective counts are computed across the ranks; rank 0 alone prints and
-writes the run bundle, which lists every rank's counts.
+writes the run bundle, which lists every rank's counts.  ``--refine`` runs
+``bicgstab.refine_block`` on every rank's block, and its max error against
+``x_true`` is the largest of the ranks'.
 """
 
 from __future__ import annotations
@@ -220,12 +224,23 @@ def main(argv=None) -> dict:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device (torch.cuda.is_available() is False); "
                          "pass --device cpu to run on the CPU")
+    own_group = dist.launched() and not dist.initialized()
     device = join_ranks(args.dist_backend, args.device)
     args.obs = args.obs or args.profile or args.run_dir is not None
     with root_prints():
-        if not args.obs:
-            return run(args, device)
-        return obs_manifest.run_bundled("solve", args, device, run)
+        out = (obs_manifest.run_bundled("solve", args, device, run) if args.obs
+               else run(args, device))
+    if own_group:
+        leave_ranks()
+    return out
+
+
+def leave_ranks() -> None:
+    """Wait for every rank (rank 0 may still be writing the run bundle),
+    then leave the group: a rank whose process exits with the group still
+    up can abort in the group's threads while its peers still run."""
+    dist.barrier()
+    dist.shutdown()
 
 
 def join_ranks(backend: str | None, device_type: str) -> torch.device:
@@ -376,9 +391,6 @@ def run(args: argparse.Namespace, device: torch.device) -> dict:
           f"schedule={args.schedule} precond={args.precond} policy={pol.name} "
           f"nrhs={args.nrhs} device={dev_name}")
     if args.refine:
-        if ranks:
-            raise SystemExit("--refine runs on one rank (its global f32 residuals gather "
-                             "the whole system); drop torchrun or --refine")
         return dict(_refine(mesh, cf, b, x_true, pol, problem, dev_name), **setup)
     del x_true
 
@@ -464,18 +476,33 @@ def run(args: argparse.Namespace, device: torch.device) -> dict:
 
 
 def _refine(mesh, cf, b, x_true, pol, problem, dev_name) -> dict:
-    """``--refine``: f32 iterative refinement around 16-bit inner solves."""
+    """``--refine``: f32 iterative refinement around 16-bit inner solves;
+    every rank refines its block (``bicgstab.refine_block``; on one rank the
+    whole system), and the error against ``x_true`` is the largest of every
+    rank's."""
     device = b.device
+    ranks = FabricAxes.from_mesh(mesh).size > 1
+    before = obs_metrics.collective_counts()
     synchronize(device)
     t0 = time.perf_counter()
-    x, rels = bicgstab.solve_refined(cf, b, mesh=mesh, inner_policy=pol)
+    x, rels, inner = bicgstab.refine_block(mesh, cf, b, inner_policy=pol)
     synchronize(device)
     dt = time.perf_counter() - t0
+    after = obs_metrics.collective_counts()
     out = dict(problem=problem, stencil=cf.spec.name, shape=list(cf.shape), policy=pol.name,
-               device=dev_name, refine_rel_residuals=rels.tolist(),
-               max_err=float((x - x_true).abs().max()), wall_s=dt)
+               device=dev_name, refine_rel_residuals=rels.tolist(), inner_iterations=inner,
+               wall_s=dt)
+    err = (x - x_true).abs().max()
+    if ranks:
+        counts = {k: after[k] - before[k] for k in after}
+        out.update(collectives=counts, per_rank=dist.all_gather_object(counts))
+        err = dist.all_reduce_max(err)
+    out["max_err"] = float(err)
     print("refinement true-residual trajectory:",
           [f"{r:.2e}" for r in out["refine_rel_residuals"]])
+    if ranks:
+        print(f"inner iterations {inner}; collectives (executed on each rank): "
+              f"allreduce={counts['allreduce_total']} ppermute={counts['ppermute_total']}")
     print(f"max err vs manufactured solution: {out['max_err']:.3e}  ({dt:.3f}s on {dev_name})")
     return out
 

@@ -1,7 +1,8 @@
 """Architecture assembly: configs, parameter and cache trees, the model module.
 
-The port of ``repro/models/transformer.py`` for the dense decoder family
-(kind ``attn`` with a dense MLP).  The JAX package scans a *period* of layer
+The port of ``repro/models/transformer.py`` for the decoder family of
+kind ``attn``, with a dense MLP or a routed Mixture-of-Experts
+(``models/moe.py``).  The JAX package scans a *period* of layer
 kinds over ``n_periods`` and stacks each period position's parameters as
 ``layers/pos{i}`` with a leading ``n_periods`` axis, so that position ``i``
 of period ``p`` is layer ``p * len(period) + i``.  The defs trees here keep
@@ -10,9 +11,9 @@ that stacked layout (for counts, shapes and carrying JAX weights across);
 layer order, in an ``nn.ModuleList``, and ``stack_apply`` is a Python loop
 over them.  Caches are a list with one entry per layer in the same order.
 
-Mamba, RWKV, routed-MoE and cross-attention layers, the encoder-decoder and
-the VLM prefix are not ported yet: they raise ``NotImplementedError``
-naming ROADMAP §1.5.
+Mamba, RWKV and cross-attention layers, the encoder-decoder and the VLM
+prefix are not ported yet: they raise ``NotImplementedError`` naming
+ROADMAP §1.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from repro_torch.models import attention, moe
 from repro_torch.models.layers import layernorm, rmsnorm
 from repro_torch.models.param import ParamDef, constrain, stack_defs
 
-NOT_PORTED = "is not ported yet (ROADMAP §1.5 lists the LM slices still to come)"
+NOT_PORTED = "is not ported yet (ROADMAP §1 lists the LM slices still to come)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,8 +116,6 @@ def _check_ported(cfg: ArchConfig, spec: LayerSpec | None = None) -> None:
     for s in ([spec] if spec is not None else cfg.period):
         if s.kind != "attn":
             raise NotImplementedError(f"{cfg.name}: layer kind {s.kind!r} {NOT_PORTED}")
-        if s.moe:
-            raise NotImplementedError(f"{cfg.name}: the routed MoE MLP {NOT_PORTED}")
         if s.cross:
             raise NotImplementedError(f"{cfg.name}: cross-attention {NOT_PORTED}")
 
@@ -140,13 +139,18 @@ def _apply_norm(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
 
 def build_layer_defs(cfg: ArchConfig, spec: LayerSpec) -> dict:
     _check_ported(cfg, spec)
-    return {
+    d = {
         "ln1": _norm_defs(cfg),
         "attn": attention.build_params(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
                                        qkv_bias=cfg.qkv_bias, dtype=cfg.dtype),
         "ln2": _norm_defs(cfg),
-        "mlp": moe.build_dense_params(cfg.d_model, cfg.d_ff, act=cfg.act, dtype=cfg.dtype),
     }
+    if spec.moe:
+        d["moe"] = moe.build_params(cfg.d_model, cfg.n_experts, cfg.d_ff_expert,
+                                    n_shared=cfg.n_shared_experts, dtype=cfg.dtype)
+    else:
+        d["mlp"] = moe.build_dense_params(cfg.d_model, cfg.d_ff, act=cfg.act, dtype=cfg.dtype)
+    return d
 
 
 def build_model_defs(cfg: ArchConfig) -> dict:
@@ -184,8 +188,8 @@ class ParamTree(nn.Module):
 
 
 class Block(ParamTree):
-    """One decoder layer's parameters (``ln1``, ``attn``, ``ln2``, ``mlp``)
-    and its spec."""
+    """One decoder layer's parameters (``ln1``, ``attn``, ``ln2``, and
+    ``mlp`` or ``moe``) and its spec."""
 
     def __init__(self, tree: dict, spec: LayerSpec):
         super().__init__(tree)
@@ -248,7 +252,8 @@ def build_cache_defs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
 
 def apply_layer(cfg: ArchConfig, spec: LayerSpec, p: Block, x: torch.Tensor, *,
                 mode: str, cache: dict | None, positions, prefix_len: int = 0):
-    """One block. Returns (x, new_cache, aux)."""
+    """One block. Returns (x, new_cache, aux): ``aux`` is the MoE layer's
+    load-balancing loss (0.0 for a dense MLP)."""
     new_cache = dict(cache) if cache is not None else None
     x = constrain(x, ("batch", "seq" if mode == "decode" else "seq_act", "d_model"))
     h = _apply_norm(cfg, p.ln1, x)
@@ -261,8 +266,13 @@ def apply_layer(cfg: ArchConfig, spec: LayerSpec, p: Block, x: torch.Tensor, *,
     if new_cache is not None:
         new_cache["attn"] = ac
     h = _apply_norm(cfg, p.ln2, x)
-    x = x + moe.dense_apply(p.mlp, h, act=cfg.act)
-    return x, new_cache, 0.0
+    aux = 0.0
+    if spec.moe:
+        o, aux = moe.moe_apply(p.moe, h, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                               group_size=cfg.moe_group_size, dispatch=cfg.moe_dispatch)
+    else:
+        o = moe.dense_apply(p.mlp, h, act=cfg.act)
+    return x + o, new_cache, aux
 
 
 def stack_apply(cfg: ArchConfig, layers: nn.ModuleList, x: torch.Tensor, *, mode: str,

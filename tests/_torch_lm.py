@@ -11,9 +11,15 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
+# one intra-op thread per test process (see tests/_torch_port.py)
+torch.set_num_threads(1)
 
 B, T, STEPS = 2, 32, 8
 ARCHS = ["qwen2_1_5b", "deepseek_7b", "stablelm_12b", "gemma3_12b"]
+#: the routed-MoE decoder (its serving tests: test_torch_lm_moe.py)
+MOE_ARCHS = ["qwen2_moe_a2_7b"]
 EPS_F32 = 2.0 ** -23
 
 

@@ -12,6 +12,11 @@ import sys
 import textwrap
 
 import numpy as np
+import torch
+
+# one intra-op thread per test process: xdist runs several workers at once,
+# and torch's default pool (one thread per core in each) oversubscribes the CPU
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -15,12 +15,14 @@ pytest.importorskip("torch")
 from _torch_port import REPO, run_python  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
+#: the port's examples, beside the JAX package's
+EXAMPLES = ("serve_lm_torch.py", "quickstart_torch.py", "cfd_cavity_torch.py")
 
 
 def _port_files():
     root = pathlib.Path(REPO)
     return sorted((root / "src" / "repro_torch").rglob("*.py")) + [
-        root / "chip_smoke.py", root / "examples" / "serve_lm_torch.py"]
+        root / "chip_smoke.py"] + [root / "examples" / f for f in EXAMPLES]
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -51,7 +53,10 @@ def test_scan_covers_the_package():
     assert {"src/repro_torch/launch/cfd.py", "src/repro_torch/checkpoint/manager.py",
             "src/repro_torch/runtime/runner.py", "src/repro_torch/apps/cfd/driver.py"} <= names
     assert {"src/repro_torch/models/model.py", "src/repro_torch/configs/gemma3_12b.py",
-            "src/repro_torch/configs/stencil_box27.py", "examples/serve_lm_torch.py"} <= names
+            "src/repro_torch/configs/stencil_box27.py", "examples/serve_lm_torch.py",
+            "examples/quickstart_torch.py", "examples/cfd_cavity_torch.py",
+            "src/repro_torch/kernels/stencil7.py", "src/repro_torch/models/moe.py",
+            "src/repro_torch/configs/qwen2_moe_a2_7b.py"} <= names
 
 
 def test_entry_point_loads_neither_package():

@@ -5,6 +5,7 @@ Full-width checks build ``ParamDef`` trees only: nothing is allocated.
 """
 
 import dataclasses
+import math
 import pathlib
 
 import jax
@@ -12,7 +13,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from _torch_lm import ARCHS
+from _torch_lm import ARCHS, MOE_ARCHS
 from _torch_port import REPO, run_python
 from repro import configs as jreg
 from repro.configs import stencil_box27 as jbox, stencil_star25_seismic as jrtm
@@ -42,7 +43,7 @@ def _fields(cfg) -> dict:
 
 
 @pytest.mark.parametrize("which", ["config", "smoke"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_configs_equal_the_reference_field_by_field(arch, which):
     get_t, get_j = ((treg.get_config, jreg.get_config) if which == "config"
                     else (treg.get_smoke, jreg.get_smoke))
@@ -53,13 +54,14 @@ def test_configs_equal_the_reference_field_by_field(arch, which):
 
 
 def test_registry_holds_the_dense_family_and_refuses_the_rest():
-    assert sorted(treg.ARCH_IDS) == sorted(ARCHS)
+    assert sorted(treg.ARCH_IDS) == sorted(ARCHS + MOE_ARCHS)
     assert all(jreg.ALIASES[a] == treg.ALIASES[a] for a in treg.ALIASES)
     assert set(treg.ARCH_IDS) | set(treg.NOT_PORTED) == set(jreg.ARCH_IDS)
     assert set(treg.NOT_PORTED.values()) | set(treg.ALIASES) == set(jreg.ALIASES)
     assert treg.get_config("qwen2-1.5b") is treg.get_config("qwen2_1_5b")
-    assert set(treg.all_configs()) == set(ARCHS)
-    for name in ("rwkv6_7b", "qwen2-moe-a2.7b", "whisper_large_v3"):
+    assert set(treg.all_configs()) == set(ARCHS + MOE_ARCHS)
+    assert treg.get_smoke("qwen2-moe-a2.7b") is treg.get_smoke("qwen2_moe_a2_7b")
+    for name in ("rwkv6_7b", "grok-1-314b", "whisper_large_v3"):
         with pytest.raises(KeyError, match="not ported yet.*ROADMAP"):
             treg.get_config(name)
     with pytest.raises(KeyError, match="unknown arch"):
@@ -79,7 +81,7 @@ def _port_leaves(defs) -> list:
                   for path, d in tparam.tree_leaves(defs))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_full_width_structure_equals_the_reference(arch):
     t, j = treg.get_config(arch), jreg.get_config(arch)
     assert _port_leaves(ttr.build_model_defs(t)) == _jax_leaves(jtr.build_model_defs(j))
@@ -103,6 +105,22 @@ def test_qwen2_full_width_numbers():
     assert kv_bytes_per_token == 28_672
 
 
+def test_qwen2_moe_full_width_numbers():
+    """The numbers the card's MoE serving phase is sized by: 14.32 B
+    parameters (28.6 GB in bf16), 2.69 B active per token, and per layer
+    16.8 M attention, 519.0 M routed and 34.6 M shared-expert weights."""
+    cfg = treg.get_config("qwen2_moe_a2_7b")
+    assert TM.n_params(cfg) == 14_315_784_192
+    assert TM.n_active_params(cfg) == 2_689_173_504
+    layer = ttr.build_layer_defs(cfg, cfg.period[0])
+    size = lambda tree: sum(math.prod(d.shape) for _, d in tparam.tree_leaves(tree))
+    moe = layer["moe"]
+    assert size(layer["attn"]) == 16_783_360
+    assert size({k: moe[k] for k in ("w_gate", "w_up", "w_down")}) == 519_045_120
+    assert size({k: v for k, v in moe.items() if k.startswith("shared")}) == 34_605_056
+    assert cfg.n_layers * 2 * cfg.n_kv_heads * cfg.d_head * 2 == 196_608
+
+
 def test_smoke_model_and_caches_follow_the_defs():
     """The unstacked model holds every stacked leaf's period slice, in layer
     order, and the per-layer caches are one period slice of the cache defs."""
@@ -124,12 +142,11 @@ def test_smoke_model_and_caches_follow_the_defs():
 
 
 def test_unported_layer_kinds_raise():
-    cfg = dataclasses.replace(treg.get_smoke("qwen2_1_5b"),
-                              period=(ttr.LayerSpec(kind="attn", moe=True),))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.build_model_defs(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.build_model_defs(dataclasses.replace(cfg, period=(ttr.LayerSpec(kind="mamba"),)))
+    cfg = treg.get_smoke("qwen2_1_5b")
+    for spec in (ttr.LayerSpec(kind="mamba"), ttr.LayerSpec(kind="rwkv"),
+                 ttr.LayerSpec(kind="attn", cross=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ttr.build_model_defs(dataclasses.replace(cfg, period=(spec,)))
 
 
 def test_entry_points_default_to_the_card():

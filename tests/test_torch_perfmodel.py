@@ -9,7 +9,8 @@ import dataclasses
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # one intra-op thread per test process (tests/_torch_port.py)
 
 from repro.configs import stencil_cs1 as jax_cells  # noqa: E402
 from repro.core import perfmodel as jax_model  # noqa: E402

@@ -58,6 +58,31 @@ def test_solve_refined_matches_jax():
     assert_bitwise(rels_m, rels)
 
 
+def test_refinement_rises_in_the_reference_when_inner_solves_cap():
+    """96^3 convdiff with bf16_mixed inner solves: after the first outer
+    step, inner solves run to their cap of 60 iterations, and the JAX
+    package's own refinement then raises its true residual at an outer step
+    (a capped bf16 correction can be worse than none).  The port's one-rank
+    refine caps as well and agrees on the first correction (an inner solve
+    that converged) within 5%; after that the two trajectories part, since
+    the capped solves' iterates follow their dots' summation order.  This is the CPU witness beside the card's ``cs1_paper`` refine
+    (chip_smoke.py 12g), whose residual rises the same way."""
+    import jax
+
+    cj, ct, x = _convdiff((96, 96, 96))
+    bj = jst.rhs_for_solution(cj, jnp.asarray(x))
+    _, rels_j = jax.jit(lambda c, v: jbi.solve_refined(
+        c, v, outer_iters=4, inner_maxiter=60, inner_policy=jprec.MIXED))(cj, bj)
+    _, rels, inner = tbi.refine_block(ONE_RANK, ct, to_t(bj), outer_iters=4, inner_maxiter=60,
+                                      inner_policy=tprec.MIXED)
+    rels_j, rels = np.asarray(rels_j), to_np(rels)
+    print("jax", rels_j.tolist(), "port", rels.tolist(), "port inner", inner)
+    assert np.isfinite(rels_j).all() and np.isfinite(rels).all()
+    assert (np.diff(rels_j) > 0).any(), rels_j
+    assert inner[0] < 60 and max(inner[1:]) == 60, inner
+    np.testing.assert_allclose(rels[1], rels_j[1], rtol=0.05)
+
+
 def _first_loop_step(monkeypatch, loop):
     """(init carry, carry after one step) of a BiCGStab loop run to
     ``maxiter=1``, read by wrapping its ``run_krylov``."""

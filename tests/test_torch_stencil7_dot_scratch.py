@@ -14,6 +14,7 @@ import re
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # one intra-op thread per test process (tests/_torch_port.py)
 
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.stencil_nd import fused  # noqa: E402
