@@ -149,7 +149,7 @@ Phases (one line of output each, JSON where it carries numbers):
    launches of one outer iteration (torch.profiler); and ms per outer
    iteration at n=4096 in ``bf16_mixed``.  (d) records and limits nothing.
 
-11. the dense LM serving path (``repro_torch.models``), which reaches no
+11. the LM serving path (``repro_torch.models``), which reaches no
    kernel: none of its runs may launch K1-K6, and the matrix-product flags
    it sets (no TF32, no bf16 reduced-precision reduction) are recorded.
    (a) The four smoke configs (B 2, T 32, 8 decodes) and (b) ``qwen2_1_5b``
@@ -183,7 +183,33 @@ Phases (one line of output each, JSON where it carries numbers):
    per step, beside the decode bound over all weights (every expert runs
    on its capacity buffer) and, labelled, over the active parameters, and
    the prefill bound over each token's 4 experts' work beside, labelled,
-   the reference's capacity buffers and one-hot einsums.
+   the reference's capacity buffers and one-hot einsums.  (a) also holds
+   the other families' smoke configs (``rwkv6_7b``, ``jamba_v0_1_52b``,
+   ``whisper_large_v3`` with 12 encoder frames, ``paligemma_3b`` with its
+   patch embeddings, ``grok_1_314b``) to the CPU, f32 within their tests'
+   tolerances (16 ulps; RWKV 128, Jamba 256).  (g) ``rwkv6_7b``: its full
+   width cut to 2 of 32 layers (the full-depth draw's first two), f32, card
+   against CPU over 1 x (2,048 + 4) within 2^-10; on the card prefill(2,048) then 64 decodes (the recurrence)
+   fed the next 64 tokens against prefill(2,112) (the chunked form), the
+   last logits, WKV states and shifts within 2^-10, the largest |P| of a
+   chunk recorded; then 8 x (2,048 + 128) at full depth as (c).  (h)
+   ``jamba_v0_1_52b`` cut to one period (8 of 32 layers: 7 Mamba, 1
+   attention, 4 MoE of 16 experts): one full-width Mamba block, f32, card
+   against CPU over a 2,048 prefill and 4 decodes within 2^-10; the model
+   in f32, prefill(2,050) then one decode against prefill(2,051), where the
+   MoE groups are 2 and 1 tokens and no capacity drops a token, with one
+   attention block over all keys (a ragged 1,024-key block's zero padding
+   counts in the reference's softmax), the last logits and the SSM and
+   conv states within 2^-10; the serving peak
+   reckoned, then 2 x (2,048 + 128) as (c), with the decode bound over all
+   weights and, labelled, over the active ones.  (i) ``whisper_large_v3``
+   at full width (32 + 32 layers): 8 requests of 1,500 encoder frames
+   (random, from a seed), 4 prompt tokens and 128 new tokens, the encoder
+   timed alone beside the prefill, the cross K/V of the frames' length.
+   (j) ``paligemma_3b`` at full width: 8 x (256 patch embeddings + 64
+   tokens) and 64 new tokens.  (g)-(j) profile 5 decode steps each; a
+   serving run's second repetition runs only while the script's clock is
+   below 720 s.
 
 12. the multi-rank solve over ``torch.distributed``: the parent, whose
    kernels are built, starts four ranks on this one card under ``torchrun
@@ -2008,6 +2034,36 @@ LM_MOE_WIDE, LM_MOE_LAYERS = ((1, 64, 4), (1, 2048, 4)), 2
 #: a token whose k-th and (k+1)-th router probabilities (the CPU's) are more
 #: than this apart must pick the same expert set on the card
 LM_MOE_MARGIN = 1e-4
+#: 11a: the other families' smoke configs (recurrent, hybrid, encoder-decoder,
+#: VLM, softcapped MoE), with the encoder's frames of the tests
+LM_FAMILY_ARCHS = ("rwkv6_7b", "jamba_v0_1_52b", "whisper_large_v3", "paligemma_3b",
+                   "grok_1_314b")
+LM_SMOKE_FRAMES = 12
+#: their f32 tolerance at smoke width where the tests' is wider than 16 ulps
+#: (tests/test_torch_lm_rwkv6.py, tests/test_torch_lm_mamba.py: the chunked
+#: WKV's exp(-P) and eight hybrid layers amplify the rounding of sums)
+LM_F32_SMOKE_ULPS = {"rwkv6_7b": 128, "jamba_v0_1_52b": 256}
+#: 11g: rwkv6_7b; full width cut to LM_CUT_LAYERS of 32 layers for the f32
+#: card-vs-CPU check over LM_RWKV_WIDE and the chunked-vs-recurrent identity
+#: (prefill(T) + LM_RWKV_TAIL decodes against prefill(T + LM_RWKV_TAIL), T
+#: and T + 64 multiples of the 64-token chunk), then served at full depth
+LM_RWKV, LM_CUT_LAYERS = "rwkv6_7b", 2
+LM_RWKV_WIDE, LM_RWKV_TAIL = (1, 2048, 4), 64
+#: 11h: jamba_v0_1_52b cut to one period (8 of 32 layers: 7 Mamba, 1
+#: attention, 4 MoE of 16 experts); one full-width Mamba block in f32 on the
+#: card and the CPU over LM_MAMBA_WIDE; the identity prefill(T) + decode(1)
+#: against prefill(T + 1) in f32 at T = LM_JAMBA_T, where the MoE groups are
+#: 2 and 1 tokens (2,050 = 2 x 1,025 and 2,051 odd, above the 2,048 group),
+#: so no expert's capacity drops a token in either run, and the attention
+#: block holds all T + 1 keys (no zero-padded block); served at LM_JAMBA_SERVE
+LM_JAMBA, LM_MAMBA_WIDE, LM_JAMBA_T = "jamba_v0_1_52b", (1, 2048, 4), 2050
+LM_JAMBA_SERVE = (2, 2048, 128)
+#: 11i: whisper_large_v3 at full width (32 + 32 layers): requests, prompt
+#: tokens, new tokens, and the encoder's frames (its enc_len_decode)
+LM_WHISPER, LM_WHISPER_SERVE, LM_WHISPER_FRAMES = "whisper_large_v3", (8, 4, 128), 1500
+#: 11j: paligemma_3b at full width: requests, prompt tokens after the 256
+#: patch embeddings, new tokens
+LM_PALIGEMMA, LM_PALIGEMMA_SERVE = "paligemma_3b", (8, 64, 64)
 
 
 def lm_models(torch, cfg, tree, device, dtype):
@@ -2023,18 +2079,40 @@ def lm_models(torch, cfg, tree, device, dtype):
                        else t.dtype), tree))
 
 
-def lm_run(torch, cfg, model, tokens, steps: int, forced=None, keep_prefill: bool = False):
+def lm_extras(torch, cfg, B: int, frames: int, seed: int = 12) -> dict:
+    """The prefill's inputs besides the tokens, f32 on the CPU from a seed:
+    the VLM's patch embeddings (B, n_frontend_tokens, d) or the encoder's
+    frames (B, frames, d); empty for a decoder-only model."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    if cfg.frontend == "vlm":
+        out["patch_embeds"] = torch.randn((B, cfg.n_frontend_tokens, cfg.d_model), generator=gen)
+    if cfg.enc_dec:
+        out["frames"] = torch.randn((B, frames, cfg.d_model), generator=gen)
+    return out
+
+
+def lm_prefix(extra: dict) -> int:
+    """Positions the prefill puts before the tokens: the VLM's patches."""
+    return extra["patch_embeds"].shape[1] if "patch_embeds" in extra else 0
+
+
+def lm_run(torch, cfg, model, tokens, steps: int, forced=None, keep_prefill: bool = False,
+           extra: dict | None = None):
     """Prefill + ``steps`` decodes; returns every step's last-position logits
     as one f32 CPU tensor (steps + 1, B, V), the tokens fed to the decodes
     (the greedy ones unless ``forced``), and with ``keep_prefill`` the
-    prefill's logits at every position as an f32 CPU tensor (B, T, V)."""
+    prefill's logits at every position as an f32 CPU tensor (B, T, V).
+    ``extra``: the prefill's other inputs (:func:`lm_extras`), moved to the
+    model's device."""
     from repro_torch.models import model as M
 
     from repro_torch.models import transformer
 
     dev = model.embed.device
     B, T = tokens.shape
-    caches = M.init_caches(cfg, B, T + steps, dev)
+    extra = extra or {}
+    caches = M.init_caches(cfg, B, T + steps + lm_prefix(extra), dev)
     real, seen = transformer.forward, {}
 
     def spy(*a, **kw):              # the prefill's final hidden, every position
@@ -2045,7 +2123,8 @@ def lm_run(torch, cfg, model, tokens, steps: int, forced=None, keep_prefill: boo
     transformer.forward = spy if keep_prefill else real
     try:
         logits, caches = M.make_prefill_step(cfg, M.SHAPES["prefill_32k"])(
-            model, {"tokens": tokens.to(dev)}, caches)
+            model, {"tokens": tokens.to(dev), **{k: v.to(dev) for k, v in extra.items()}},
+            caches)
     finally:
         transformer.forward = real
     every = None
@@ -2062,44 +2141,50 @@ def lm_run(torch, cfg, model, tokens, steps: int, forced=None, keep_prefill: boo
     return torch.stack(out), torch.stack(fed), every
 
 
-def lm_card_vs_cpu(torch, cfg, tree, shape, f32_tol: float) -> dict:
+def lm_card_vs_cpu(torch, cfg, tree, shape, f32_tol: float, extra: dict | None = None,
+                   bf16: bool = True) -> dict:
     """One model's weights served on the card and on the CPU, each in f32
-    and bf16, every decode fed the CPU f32 run's greedy tokens.  f32: the
-    card within ``f32_tol`` of the CPU's largest |logit|; bf16: the card no
-    more than ``LM_BF16_FACTOR`` times as far from the CPU's f32 logits as
-    the CPU's bf16 logits are.  Greedy tokens agree wherever the CPU's top-2
-    gap exceeds the tolerance."""
+    and (unless not ``bf16``) bf16, every decode fed the CPU f32 run's greedy
+    tokens.  f32: the card within ``f32_tol`` of the CPU's largest |logit|;
+    bf16: the card no more than ``LM_BF16_FACTOR`` times as far from the
+    CPU's f32 logits as the CPU's bf16 logits are.  Greedy tokens agree
+    wherever the CPU's top-2 gap exceeds the tolerance."""
     B, T, steps = shape
     tokens = torch.randint(0, cfg.vocab, (B, T), generator=torch.Generator().manual_seed(11))
     runs = {}
+    dtypes = (("f32", torch.float32), ("bf16", torch.bfloat16))[:2 if bf16 else 1]
     for side, dev in (("cpu", "cpu"), ("card", "cuda")):
-        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for name, dt in dtypes:
             c, model = lm_models(torch, cfg, tree, dev, dt)
             forced = runs["cpu_f32"][1] if runs else None
-            runs[f"{side}_{name}"] = lm_run(torch, c, model, tokens, steps, forced)[:2]
+            runs[f"{side}_{name}"] = lm_run(torch, c, model, tokens, steps, forced,
+                                            extra=extra)[:2]
             del model
             torch.cuda.empty_cache()
-    cpu32, cpu16 = runs["cpu_f32"][0], runs["cpu_bf16"][0]
-    card32, card16 = runs["card_f32"][0], runs["card_bf16"][0]
+    cpu32, card32 = runs["cpu_f32"][0], runs["card_f32"][0]
 
     def gap(a, b):
         return float((a - b).abs().max())
 
     tol32 = f32_tol * float(cpu32.abs().max())
-    ref16 = gap(cpu16, cpu32)
-    out = dict(f32_err=gap(card32, cpu32), f32_tol=tol32, f32_err_rel=gap(card32, cpu32)
-               / float(cpu32.abs().max()), bf16_card_vs_cpu_f32=gap(card16, cpu32),
-               bf16_cpu_vs_cpu_f32=ref16, bf16_card_vs_cpu_bf16=gap(card16, cpu16),
+    out = dict(f32_err=gap(card32, cpu32), f32_tol=tol32,
+               f32_err_rel=gap(card32, cpu32) / float(cpu32.abs().max()),
                finite=all(bool(torch.isfinite(r[0]).all()) for r in runs.values()))
     check(out["finite"], f"11 {cfg.name}: non-finite logits")
     check(out["f32_err"] <= tol32, f"11 {cfg.name}: f32 card vs CPU {out['f32_err']!r} > {tol32!r}")
-    check(out["bf16_card_vs_cpu_f32"] <= LM_BF16_FACTOR * ref16,
-          f"11 {cfg.name}: bf16 card {out['bf16_card_vs_cpu_f32']!r} from the CPU's f32 logits, "
-          f"more than {LM_BF16_FACTOR} x the CPU bf16 run's {ref16!r}")
+    held = [("f32", card32, cpu32, tol32)]
+    if bf16:
+        cpu16, card16 = runs["cpu_bf16"][0], runs["card_bf16"][0]
+        ref16 = gap(cpu16, cpu32)
+        out.update(bf16_card_vs_cpu_f32=gap(card16, cpu32), bf16_cpu_vs_cpu_f32=ref16,
+                   bf16_card_vs_cpu_bf16=gap(card16, cpu16))
+        check(out["bf16_card_vs_cpu_f32"] <= LM_BF16_FACTOR * ref16,
+              f"11 {cfg.name}: bf16 card {out['bf16_card_vs_cpu_f32']!r} from the CPU's f32 "
+              f"logits, more than {LM_BF16_FACTOR} x the CPU bf16 run's {ref16!r}")
+        held.append(("bf16", card16, cpu16, (1 + LM_BF16_FACTOR) * ref16))
     # the card and the CPU run in one dtype differ by at most tol32 (f32) or
     # (1 + LM_BF16_FACTOR) x ref16 (bf16), so a gap above that decides the token
-    for name, card, cpu, tol in (("f32", card32, cpu32, tol32),
-                                 ("bf16", card16, cpu16, (1 + LM_BF16_FACTOR) * ref16)):
+    for name, card, cpu, tol in held:
         top2 = cpu.topk(2, dim=-1).values
         decisive = (top2[..., 0] - top2[..., 1]) > tol
         agree = card.argmax(-1) == cpu.argmax(-1)
@@ -2238,95 +2323,194 @@ def lm_param_bytes(cfg) -> int:
                for _, d in tree_leaves(build_model_defs(cfg)))
 
 
-def lm_keys_per_layer(cfg, T: int) -> list[int]:
-    """Keys each layer's causal attention must read over a prompt of T
-    (sum over queries of the keys in reach: all before it, or the window)."""
+def lm_keys_per_layer(cfg, T: int, prefix: int = 0) -> list[int]:
+    """Keys each layer's self-attention must read over a prompt of T
+    positions (sum over queries of the keys in reach: all before it, or the
+    window; a query inside a bidirectional prefix of ``prefix`` positions
+    reads the whole prefix); 0 for a Mamba or RWKV layer."""
     out = []
     for spec in cfg.layer_specs():
         w = spec.window or T
-        out.append(sum(min(q + 1, w) for q in range(T)) if w < T else T * (T + 1) // 2)
+        if spec.kind != "attn":
+            out.append(0)
+        elif prefix:
+            out.append(sum(min(max(q, prefix - 1) + 1, w) for q in range(T)))
+        else:
+            out.append(sum(min(q + 1, w) for q in range(T)) if w < T else T * (T + 1) // 2)
     return out
 
 
 def lm_moe_ops(cfg, n_tok: int, capacity_buffers: bool = False) -> int:
-    """The routed experts' operations over ``n_tok`` tokens in every layer:
-    each token's ``top_k`` experts (3 matrices of d x d_ff_expert), the
-    work the function needs.  With ``capacity_buffers``, what the einsum
+    """The routed experts' operations over ``n_tok`` tokens in every MoE
+    layer: each token's ``top_k`` experts (3 matrices of d x d_ff_expert),
+    the work the function needs.  With ``capacity_buffers``, what the einsum
     dispatch runs instead: each group's every expert on its whole capacity
     buffer, and the dispatch and combine einsums over the (g, E, cap)
-    masks.  0 for a dense model."""
-    if not cfg.n_experts:
+    masks.  0 for a model without MoE layers."""
+    n_moe = sum(s.moe for s in cfg.layer_specs())
+    if not n_moe:
         return 0
     from repro_torch.models.moe import capacity, tokens_per_group
 
     expert = 2 * 3 * cfg.d_model * cfg.d_ff_expert
     if not capacity_buffers:
-        return cfg.n_layers * n_tok * cfg.top_k * expert
+        return n_moe * n_tok * cfg.top_k * expert
     g = tokens_per_group(n_tok, cfg.moe_group_size)
     slots = (n_tok // g) * cfg.n_experts * capacity(g, cfg.n_experts, cfg.top_k)
-    return cfg.n_layers * (slots * expert + 2 * 2 * g * slots * cfg.d_model)
+    return n_moe * (slots * expert + 2 * 2 * g * slots * cfg.d_model)
 
 
-def lm_bounds(cfg, B: int, T: int, steps: int) -> dict:
-    """The least time the card could take (ms): the prefill's operations at
-    989 TFLOP/s or its bytes (weights read once, the cache written once) at
-    3.35 TB/s, whichever is larger; one decode step's bytes (every weight
-    read once, the tied or untied head included, and each layer's cache up
-    to its length or window, at the steps' mean length) or operations."""
-    d, H, K, Dh, F, V = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_ff, cfg.vocab
-    mlp = (3 if cfg.act in ("swiglu", "geglu") else 2) * d * F
-    if cfg.n_experts:        # shared experts (n_shared x d_ff_expert) and the router
-        mlp = 3 * d * cfg.n_shared_experts * cfg.d_ff_expert + d * cfg.n_experts
-    per_layer = 2 * d * H * Dh + 2 * d * K * Dh + mlp
+def lm_matrix_params(cfg, spec) -> int:
+    """Matrix parameters one decoder token passes through in a layer of
+    ``spec`` (its projections, and the dense MLP or the shared experts and
+    router; the routed experts are :func:`lm_moe_ops`'); the encoder-side
+    cross-attention K/V projections are counted per frame, apart."""
+    d, H, K, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    if spec.kind == "rwkv":
+        from repro_torch.models.rwkv6 import DDLERP_R, LORA_R
+
+        return 2 * 5 * DDLERP_R * d + 6 * d * d + 2 * LORA_R * d + 2 * d * cfg.d_ff
+    if spec.kind == "mamba":
+        di, N = cfg.mamba_expand * d, cfg.mamba_d_state
+        R = math.ceil(d / 16)
+        mix = 2 * d * di + di * (R + 2 * N) + R * di + di * d
+    else:
+        mix = 2 * d * H * Dh + 2 * d * K * Dh + (2 * d * H * Dh if spec.cross else 0)
+    if spec.moe:        # shared experts (n_shared x d_ff_expert) and the router
+        return mix + 3 * d * cfg.n_shared_experts * cfg.d_ff_expert + d * cfg.n_experts
+    return mix + (3 if cfg.act in ("swiglu", "geglu") else 2) * d * cfg.d_ff
+
+
+def lm_state_bytes(cfg, spec, B: int) -> int:
+    """One layer's recurrent state (the WKV state and both shifts, or the
+    SSM and conv states), read and written once by a step."""
+    if spec.kind == "rwkv":
+        hs = cfg.rwkv_head_size
+        return B * (cfg.d_model // hs) * hs * hs * 4 + 2 * B * cfg.d_model * 2
+    if spec.kind == "mamba":
+        di = cfg.mamba_expand * cfg.d_model
+        return B * di * cfg.mamba_d_state * 4 + B * (cfg.mamba_d_conv - 1) * di * 2
+    return 0
+
+
+def lm_bounds(cfg, B: int, T: int, steps: int, prefix: int = 0, enc_len: int = 0) -> dict:
+    """The least time the card could take (ms): the prefill's matrix-product
+    operations at 989 TFLOP/s or its bytes (weights read once, caches and
+    states written once) at 3.35 TB/s, whichever is larger; one decode
+    step's bytes (every weight read once, the tied or untied head included,
+    each attention layer's cache up to its length or window at the steps'
+    mean length, the cross K/V, each recurrent state read and written) or
+    operations.  ``prefix``: the VLM's patch positions before the T tokens;
+    ``enc_len``: the encoder's frames (its layers, and the cross K/V of
+    every cross-attention layer).  The element-wise work of the WKV and the
+    selective scan is left out: a bound may count less than the work."""
+    from repro_torch.models.transformer import ENC_SPEC
+
+    d, H, K, Dh, V = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.vocab
+    specs = cfg.layer_specs()
+    Tt = prefix + T
     w_bytes = lm_param_bytes(cfg)
     item = 2
-    kv_tok = cfg.n_layers * 2 * K * Dh * item
-    attn = sum(4 * B * H * Dh * k for k in lm_keys_per_layer(cfg, T))
-    pre_ops = 2 * B * T * cfg.n_layers * per_layer + attn + 2 * B * d * V + lm_moe_ops(cfg, B * T)
-    pre_bytes = w_bytes + B * T * kv_tok
-    lens = [T + s + 1 for s in range(steps)]
+    n_attn = sum(s.kind == "attn" for s in specs)
+    n_cross = sum(s.cross for s in specs)
+    kv_tok = n_attn * 2 * K * Dh * item
+    states = sum(lm_state_bytes(cfg, s, B) for s in specs)
+    per_tok = sum(lm_matrix_params(cfg, s) for s in specs)
+    attn = sum(4 * B * H * Dh * k for k in lm_keys_per_layer(cfg, Tt, prefix))
+    cross_kv = n_cross * B * enc_len * 2 * K * Dh
+    pre_ops = (2 * B * Tt * per_tok + attn + 2 * B * d * V + lm_moe_ops(cfg, B * Tt)
+               + 2 * d * cross_kv + 4 * B * H * Dh * enc_len * Tt * n_cross)
+    if enc_len:
+        pre_ops += cfg.n_enc_layers * (2 * B * enc_len * lm_matrix_params(cfg, ENC_SPEC)
+                                       + 4 * B * H * Dh * enc_len * enc_len)
+    pre_bytes = w_bytes + B * Tt * kv_tok + states + cross_kv * item
+    lens = [Tt + s + 1 for s in range(steps)]
     kv_read = sum(sum(B * min(L, spec.window or L) * 2 * K * Dh * item
-                      for spec in cfg.layer_specs()) for L in lens) / len(lens)
-    dec_ops = 2 * B * (cfg.n_layers * per_layer + d * V) + lm_moe_ops(cfg, B) + sum(
-        sum(4 * B * H * Dh * min(L, spec.window or L) for spec in cfg.layer_specs())
-        for L in lens) / len(lens)
+                      for spec in specs if spec.kind == "attn") for L in lens) / len(lens)
+    dec_read = kv_read + cross_kv * item + 2 * states
+    dec_ops = 2 * B * (per_tok + d * V) + lm_moe_ops(cfg, B) + sum(
+        sum(4 * B * H * Dh * min(L, spec.window or L) for spec in specs if spec.kind == "attn")
+        for L in lens) / len(lens) + 4 * B * H * Dh * enc_len * n_cross
     pre = max(pre_ops / PEAK_BF16_FLOPS, pre_bytes / PEAK_BYTES_PER_S) * 1e3
-    dec = max(dec_ops / PEAK_BF16_FLOPS, (w_bytes + kv_read) / PEAK_BYTES_PER_S) * 1e3
+    dec = max(dec_ops / PEAK_BF16_FLOPS, (w_bytes + dec_read) / PEAK_BYTES_PER_S) * 1e3
     # the reference's capacity buffers and one-hot einsums, beside the bound
-    pre_cap = pre_ops - lm_moe_ops(cfg, B * T) + lm_moe_ops(cfg, B * T, capacity_buffers=True)
+    pre_cap = pre_ops - lm_moe_ops(cfg, B * Tt) + lm_moe_ops(cfg, B * Tt, capacity_buffers=True)
     return dict(weight_bytes=w_bytes, prefill_flops=pre_ops, prefill_bound_ms=pre,
                 prefill_capacity_buffer_flops=pre_cap,
                 prefill_capacity_buffer_ms=pre_cap / PEAK_BF16_FLOPS * 1e3,
                 prefill_bound_by="operations" if pre_ops / PEAK_BF16_FLOPS
                 > pre_bytes / PEAK_BYTES_PER_S else "bytes",
-                decode_bytes=w_bytes + kv_read, decode_flops=dec_ops, decode_bound_ms=dec,
-                decode_bound_by="bytes" if (w_bytes + kv_read) / PEAK_BYTES_PER_S
+                decode_bytes=w_bytes + dec_read, decode_state_bytes=2 * states,
+                decode_flops=dec_ops, decode_bound_ms=dec,
+                decode_bound_by="bytes" if (w_bytes + dec_read) / PEAK_BYTES_PER_S
                 > dec_ops / PEAK_BF16_FLOPS else "operations")
 
 
+def lm_chunk_decay(torch, fn):
+    """Runs ``fn()`` with ``rwkv6.wkv_chunked`` spied on: the largest |P|,
+    a chunk's whole log-decay sum (the chunked form scales by exp(-P))."""
+    from repro_torch.models import rwkv6
+
+    real, seen = rwkv6.wkv_chunked, []
+
+    def spy(r, k, v, log_decay, bonus, state, *, chunk=64):
+        B, T, H, D = r.shape
+        C = rwkv6.chunk_len(T, chunk)
+        seen.append(float(log_decay.float().reshape(B, T // C, C, H, D).sum(2).abs().max()))
+        return real(r, k, v, log_decay, bonus, state, chunk=chunk)
+
+    rwkv6.wkv_chunked = spy
+    try:
+        fn()
+    finally:
+        rwkv6.wkv_chunked = real
+    return max(seen)
+
+
 def lm_serve(torch, smi: str, cfg, shape, label: str, cut: str | None = None, reps: int = 1,
-             profile: bool = False) -> dict:
+             profile: bool = False, frames: int = 0) -> dict:
     """Serve ``shape`` = (B, T, new tokens) on the card, bf16, random weights
     from a seed: a batched prefill, then new - 1 greedy decode steps (the
     prefill gives the first token).  Host clock around each phase, ending
-    in a synchronise; ``reps`` times on the same weights, the first rep also
-    reading peak memory.  Every logit must be finite."""
+    in a synchronise; ``reps`` times on the same weights, the first rep
+    also reading peak memory.  The VLM's patch embeddings and the
+    encoder's ``frames`` frames are :func:`lm_extras`'; an encoder-decoder's
+    encoder pass is also timed alone.  Every logit must be
+    finite."""
     from repro_torch.models import model as M
+    from repro_torch.models import transformer
 
     B, T, new = shape
     dev = torch.device("cuda")
     torch.cuda.empty_cache()
     params = M.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
-    tokens = torch.randint(0, cfg.vocab, (B, T), generator=torch.Generator(dev).manual_seed(1),
-                           device=dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, T), device=dev,
+                                     generator=torch.Generator(dev).manual_seed(1)),
+             **{k: v.to(dev, cfg.dtype) for k, v in lm_extras(torch, cfg, B, frames).items()}}
+    P = lm_prefix(batch)
     prefill, serve = M.make_prefill_step(cfg, M.SHAPES["prefill_32k"]), M.make_serve_step(cfg)
+
+    def encode():
+        with torch.inference_mode():
+            enc = transformer.stack_apply(
+                cfg, params.enc_layers, batch["frames"], mode="train", caches=None,
+                positions=torch.arange(frames, device=dev))[0]
+            return transformer._apply_norm(cfg, params.enc_norm, enc)
+
     runs = []
     for rep in range(reps):
-        caches = M.init_caches(cfg, B, T + new, dev)
+        caches = M.init_caches(cfg, B, P + T + new, dev)
+        rec = {}
+        if cfg.enc_dec:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            encode()
+            torch.cuda.synchronize()
+            rec["encoder_ms"] = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        logits, caches = prefill(params, {"tokens": tokens}, caches)
+        logits, caches = prefill(params, batch, caches)
         torch.cuda.synchronize()
         t_pre = time.perf_counter() - t0
         finite = torch.isfinite(logits).all()
@@ -2338,23 +2522,37 @@ def lm_serve(torch, smi: str, cfg, shape, label: str, cut: str | None = None, re
             tok = logits[:, -1].argmax(-1)[:, None]
         torch.cuda.synchronize()
         t_dec = time.perf_counter() - t0
-        runs.append(dict(prefill_ms=t_pre * 1e3, prefill_tokens_per_s=B * T / t_pre,
+        lengths = {c["attn"].length for c in caches if "attn" in c}
+        runs.append(dict(prefill_ms=t_pre * 1e3, prefill_tokens_per_s=B * (P + T) / t_pre,
                          decode_ms_per_step=t_dec * 1e3 / (new - 1),
                          decode_tokens_per_s=B * (new - 1) / t_dec,
                          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-                         finite=bool(finite), cache_length=caches[0]["attn"].length))
+                         finite=bool(finite), cache_lengths=sorted(lengths), **rec))
         check(runs[-1]["finite"], f"11 {label}: non-finite logits (rep {rep})")
-        check(runs[-1]["cache_length"] == T + new - 1, f"11 {label}: cache length "
-              f"{runs[-1]['cache_length']} != {T + new - 1}")
+        check(lengths <= {P + T + new - 1}, f"11 {label}: cache lengths {lengths} != "
+                                             f"{P + T + new - 1}")
+        if cfg.enc_dec:
+            ck = next(c["cross_k"] for c in caches if "cross_k" in c)
+            check(tuple(ck.shape) == (B, frames, cfg.n_kv_heads, cfg.d_head),
+                  f"11 {label}: cross K/V {tuple(ck.shape)} after prefill")
+    specs = cfg.layer_specs()
+    n_attn = sum(sp.kind == "attn" for sp in specs)
     out = dict(phase="lm_serve", cell=label, card=smi, arch=cfg.name, n_layers=cfg.n_layers,
-               batch=B, prompt=T, new_tokens=new, decode_steps=new - 1, dtype="bfloat16", cut=cut,
-               kv_cache_gb=B * (T + new) * cfg.n_layers * 2 * cfg.n_kv_heads * cfg.d_head * 2 / 1e9,
-               runs=runs, **lm_bounds(cfg, B, T, new - 1))
+               batch=B, prompt=T, prefix=P, frames=frames, new_tokens=new,
+               decode_steps=new - 1, dtype="bfloat16", cut=cut,
+               kv_cache_gb=B * (P + T + new) * n_attn * 2 * cfg.n_kv_heads * cfg.d_head * 2 / 1e9,
+               state_gb=sum(lm_state_bytes(cfg, sp, B) for sp in specs) / 1e9,
+               runs=runs, **lm_bounds(cfg, B, T, new - 1, prefix=P, enc_len=frames))
+    if any(sp.kind == "rwkv" for sp in specs):
+        out["max_chunk_log_decay"] = lm_chunk_decay(
+            torch, lambda: prefill(params, batch, M.init_caches(cfg, B, P + T + new, dev)))
     if profile:
-        # 5 decode steps from the prompt's cache (rewound: positions T.. again)
+        # 5 decode steps from the prompt's cache (attention rewound to
+        # positions P + T.., recurrent states carried on)
         from repro_torch.models.attention import AttnCache
 
-        rewound = [{"attn": AttnCache(c["attn"].k, c["attn"].v, T)} for c in caches]
+        rewound = [dict(c, **({"attn": AttnCache(c["attn"].k, c["attn"].v, P + T)}
+                              if "attn" in c else {})) for c in caches]
 
         def steps():
             cs, t = rewound, tok
@@ -2370,9 +2568,9 @@ def lm_serve(torch, smi: str, cfg, shape, label: str, cut: str | None = None, re
 
 
 def phase11(torch, smi: str, profile: bool = False) -> dict:
-    """11a-11e (module docstring): the dense LM serving path on the card,
-    held to the port's CPU run, then served at full width; none of it may
-    launch a kernel."""
+    """11a-11j (module docstring): the LM serving path on the card, held to
+    the port's CPU run, then served at full width; none of it may launch a
+    kernel."""
     from repro_torch.configs import get_config, get_smoke
     from repro_torch.kernels import launch_counts
     from repro_torch.models.param import init_tree
@@ -2390,8 +2588,15 @@ def phase11(torch, smi: str, profile: bool = False) -> dict:
         tree = init_tree(build_model_defs(cfg), torch.Generator(dev).manual_seed(0), dev)
         out["smoke"][arch] = lm_card_vs_cpu(torch, cfg, tree, LM_SMOKE, LM_F32_TOL["smoke"])
         del tree
+    for arch in LM_FAMILY_ARCHS:
+        cfg = get_smoke(arch)
+        tree = init_tree(build_model_defs(cfg), torch.Generator(dev).manual_seed(0), dev)
+        out["smoke"][arch] = lm_card_vs_cpu(
+            torch, cfg, tree, LM_SMOKE, LM_F32_SMOKE_ULPS.get(arch, 16) * EPS_F32,
+            extra=lm_extras(torch, cfg, LM_SMOKE[0], LM_SMOKE_FRAMES))
+        del tree
     emit(dict(phase="lm_smoke_card_vs_cpu", card=smi, batch=LM_SMOKE[0], prompt=LM_SMOKE[1],
-              decode_steps=LM_SMOKE[2], **out["smoke"]))
+              decode_steps=LM_SMOKE[2], frames=LM_SMOKE_FRAMES, **out["smoke"]))
 
     # -- 11b: qwen2_1_5b at full width, card against CPU -------------------------
     cfg = get_config("qwen2_1_5b")
@@ -2413,6 +2618,14 @@ def phase11(torch, smi: str, profile: bool = False) -> dict:
                              cut="depth 48 -> 6 (one period: 5 windowed layers, 1 global)")
 
     out["moe"] = phase11f(torch, smi)
+    out["rwkv"] = phase11g(torch, smi)
+    out["jamba"] = phase11h(torch, smi)
+    out["whisper"] = lm_serve_summary(lm_serve(
+        torch, smi, get_config(LM_WHISPER), LM_WHISPER_SERVE, "whisper_serve_8x1500",
+        reps=2, profile=True, frames=LM_WHISPER_FRAMES))
+    out["paligemma"] = lm_serve_summary(lm_serve(
+        torch, smi, get_config(LM_PALIGEMMA), LM_PALIGEMMA_SERVE, "paligemma_serve_8x(256+64)",
+        reps=2, profile=True))
 
     after = launch_counts()
     check(after == before, f"11: the LM runs launched kernels: {before} -> {after}")
@@ -2431,7 +2644,6 @@ def phase11f(torch, smi: str) -> dict:
     """11f (module docstring): Qwen1.5-MoE-A2.7B, the smoke config and a
     2-layer full-width cut held to the CPU, then served at full depth."""
     from repro_torch.configs import get_config, get_smoke
-    from repro_torch.models import model as M
     from repro_torch.models.param import init_tree
     from repro_torch.models.transformer import build_model_defs
 
@@ -2462,27 +2674,208 @@ def phase11f(torch, smi: str) -> dict:
     del tree
     torch.cuda.empty_cache()
 
-    serve = lm_serve(torch, smi, full, LM_SERVE, "moe_serve_8x2048", reps=2, profile=True)
     B, T, new = LM_SERVE
-    kv_read = serve["decode_bytes"] - serve["weight_bytes"]
-    active = M.n_active_params(full) * 2
-    out["serve"] = dict(
-        prefill_ms=[r["prefill_ms"] for r in serve["runs"]],
-        decode_ms_per_step=[r["decode_ms_per_step"] for r in serve["runs"]],
-        decode_tokens_per_s=[r["decode_tokens_per_s"] for r in serve["runs"]],
-        prefill_tokens_per_s=[r["prefill_tokens_per_s"] for r in serve["runs"]],
-        peak_memory_gb=serve["runs"][0]["peak_memory_gb"],
-        launches_per_decode_step=serve["profile"]["launches"] / PROFILE_ITERS,
-        decode_idle_share=serve["profile"]["idle_share"],
-        prefill_bound_ms=serve["prefill_bound_ms"], prefill_bound_by=serve["prefill_bound_by"],
-        prefill_capacity_buffer_ms=serve["prefill_capacity_buffer_ms"],
-        decode_bound_ms=serve["decode_bound_ms"], decode_bound_by=serve["decode_bound_by"],
-        decode_bound_active_params_ms=(active + kv_read) / PEAK_BYTES_PER_S * 1e3,
-        n_params=M.n_params(full), n_active_params=M.n_active_params(full),
-        kv_cache_gb=serve["kv_cache_gb"])
+    out["serve"] = lm_serve_summary(
+        lm_serve(torch, smi, full, LM_SERVE, "moe_serve_8x2048", reps=2, profile=True), full)
     out["seconds"] = time.perf_counter() - t0
     emit(dict(phase="lm_moe_serve", card=smi, arch=full.name, n_layers=full.n_layers,
-              batch=B, prompt=T, new_tokens=new, seconds=out["seconds"], **out["serve"]))
+              batch=B, prompt=T, new_tokens=new, seconds=out["seconds"]))
+    return out
+
+
+def lm_serve_summary(serve: dict, cfg=None) -> dict:
+    """The numbers PERF.md reads from a serving run: each rep's times, the
+    first rep's peak memory, the profiled decode steps' launches and idle
+    share, and the bounds (with ``cfg`` an MoE model's, also over its active
+    parameters only)."""
+    from repro_torch.models import model as M
+
+    out = dict(cell=serve["cell"], arch=serve["arch"], n_layers=serve["n_layers"],
+               batch=serve["batch"], prompt=serve["prompt"], prefix=serve["prefix"],
+               frames=serve["frames"], new_tokens=serve["new_tokens"], card=serve["card"],
+               **{k: [r[k] for r in serve["runs"]] for k in (
+                   "prefill_ms", "prefill_tokens_per_s", "decode_ms_per_step",
+                   "decode_tokens_per_s") + (("encoder_ms",) if serve["frames"] else ())},
+               peak_memory_gb=serve["runs"][0]["peak_memory_gb"],
+               launches_per_decode_step=serve["profile"]["launches"] / PROFILE_ITERS,
+               decode_idle_share=serve["profile"]["idle_share"],
+               prefill_bound_ms=serve["prefill_bound_ms"],
+               prefill_bound_by=serve["prefill_bound_by"],
+               decode_bound_ms=serve["decode_bound_ms"], decode_bound_by=serve["decode_bound_by"],
+               weight_gb=serve["weight_bytes"] / 1e9, kv_cache_gb=serve["kv_cache_gb"],
+               state_gb=serve["state_gb"], decode_state_gb=serve["decode_state_bytes"] / 1e9)
+    # where a decode step's device time goes: the five largest kernels, ms a step
+    out["decode_busy_ms_per_step"] = serve["profile"]["busy_ms"] / PROFILE_ITERS
+    out["decode_top_kernels_ms_per_step"] = {
+        k[:60]: v["ms"] / PROFILE_ITERS
+        for k, v in list(serve["profile"]["kernels_by_device_ms"].items())[:5]}
+    if "max_chunk_log_decay" in serve:
+        out["max_chunk_log_decay"] = serve["max_chunk_log_decay"]
+    if cfg is not None and cfg.n_experts:
+        kv_read = serve["decode_bytes"] - serve["weight_bytes"]
+        out.update(decode_bound_active_params_ms=(M.n_active_params(cfg) * 2 + kv_read)
+                   / PEAK_BYTES_PER_S * 1e3, n_params=M.n_params(cfg),
+                   n_active_params=M.n_active_params(cfg),
+                   prefill_capacity_buffer_ms=serve["prefill_capacity_buffer_ms"])
+    emit(dict(phase="lm_serve_summary", **out))
+    return out
+
+
+def lm_rel_gap(torch, a, b) -> float:
+    """max |a - b| over max |b|, on the CPU in f32."""
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def phase11g(torch, smi: str) -> dict:
+    """11g (module docstring): RWKV-6 7B, a 2-layer full-width cut held to
+    the CPU and its chunked prefill to its recurrent decodes, then served at
+    full depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.param import init_tree, map_tree
+    from repro_torch.models.transformer import build_model_defs
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    out: dict = {}
+    full = get_config(LM_RWKV)
+    cut = dataclasses.replace(full, n_layers=LM_CUT_LAYERS)
+    # the first layers of the full-depth model's weights: drawn for a 2-layer
+    # stack, the init's fan-in (which counts the stacked layer axis, as the
+    # JAX package's does) would make every weight 4x larger, and a 64-token
+    # chunk's exp(-P) overflow f32 in the reference's arithmetic too
+    tree = init_tree(build_model_defs(full), torch.Generator(dev).manual_seed(0), dev)
+    tree["layers"] = map_tree(lambda t: t[:LM_CUT_LAYERS].clone(), tree["layers"])
+    torch.cuda.empty_cache()
+    out["wide"] = lm_card_vs_cpu(torch, cut, tree, LM_RWKV_WIDE, LM_F32_TOL["wide"], bf16=False)
+    emit(dict(phase="lm_rwkv_full_width_card_vs_cpu", card=smi, arch=cut.name,
+              n_layers=cut.n_layers, cut=f"depth {full.n_layers} -> {cut.n_layers}",
+              batch=LM_RWKV_WIDE[0], prompt=LM_RWKV_WIDE[1], decode_steps=LM_RWKV_WIDE[2],
+              **out["wide"]))
+
+    # the chunked prefill against the recurrence: prefill(T) + 64 decodes fed
+    # the next 64 tokens, against prefill(T + 64), f32 on the card
+    c32, model = lm_models(torch, cut, tree, dev, torch.float32)
+    del tree
+    T, n = LM_RWKV_WIDE[1], LM_RWKV_TAIL
+    toks = torch.randint(0, cut.vocab, (1, T + n), generator=torch.Generator().manual_seed(13))
+    toks = toks.to(dev)
+    pre, serve = M.make_prefill_step(c32, M.SHAPES["prefill_32k"]), M.make_serve_step(c32)
+    caches = pre(model, {"tokens": toks[:, :T]}, M.init_caches(c32, 1, T + n, dev))[1]
+    for s in range(n):
+        logits, caches = serve(model, {"token": toks[:, T + s:T + s + 1]}, caches)
+    whole, got = M.init_caches(c32, 1, T + n, dev), {}    # states written in place
+    max_p = lm_chunk_decay(torch, lambda: got.update(want=pre(model, {"tokens": toks}, whole)[0]))
+    want = got["want"]
+    out["chunked_vs_recurrent"] = rec = dict(
+        prompt=T, decodes=n, logits_rel=lm_rel_gap(torch, logits[:, -1], want[:, -1]),
+        wkv_rel=max(lm_rel_gap(torch, a["wkv"], b["wkv"]) for a, b in zip(caches, whole)),
+        shift_rel=max(lm_rel_gap(torch, a[k], b[k]) for a, b in zip(caches, whole)
+                      for k in ("tm_shift", "cm_shift")),
+        max_chunk_log_decay=max_p, tol=LM_F32_TOL["wide"],
+        finite=bool(torch.isfinite(logits).all() and torch.isfinite(want).all()))
+    check(rec["finite"], "11g: non-finite logits in the chunked-vs-recurrent runs")
+    check(max(rec["logits_rel"], rec["wkv_rel"], rec["shift_rel"]) <= rec["tol"],
+          f"11g: prefill(T) + {n} decodes vs prefill(T + {n}): {rec}")
+    emit(dict(phase="lm_rwkv_chunked_vs_recurrent", card=smi, arch=cut.name,
+              n_layers=cut.n_layers, **rec))
+    del model, caches, whole
+    torch.cuda.empty_cache()
+
+    out["serve"] = lm_serve_summary(lm_serve(
+        torch, smi, full, LM_SERVE, "rwkv6_serve_8x2048", reps=2, profile=True))
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase11h(torch, smi: str) -> dict:
+    """11h (module docstring): Jamba cut to one period: a full-width Mamba
+    block held to the CPU, the model's prefill(T) + decode(1) held to
+    prefill(T + 1), then served."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba
+    from repro_torch.models import model as M
+    from repro_torch.models.param import init_tree, map_tree
+    from repro_torch.models.transformer import ParamTree
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    out: dict = {}
+    full = get_config(LM_JAMBA)
+    cut = dataclasses.replace(full, n_layers=len(full.period))
+
+    # one full-width Mamba block, f32, card against CPU: prefill + decodes
+    B, T, steps = LM_MAMBA_WIDE
+    defs = mamba.build_params(full.d_model, d_state=full.mamba_d_state,
+                              d_conv=full.mamba_d_conv, expand=full.mamba_expand,
+                              dtype=torch.float32)
+    tree = init_tree(defs, torch.Generator(dev).manual_seed(0), dev)
+    x = torch.randn((B, T + steps, full.d_model), generator=torch.Generator().manual_seed(14))
+    res = {}
+    for side in ("cpu", "cuda"):
+        p = ParamTree(map_tree(lambda t: t.to(side), tree))
+        xs = x.to(side)
+        with torch.inference_mode():
+            y, (S, c) = mamba.mamba_apply(p, xs[:, :T])
+            ys = [y]
+            for i in range(steps):
+                o, (S, c) = mamba.mamba_decode(p, xs[:, T + i:T + i + 1], S, c)
+                ys.append(o)
+        res[side] = (torch.cat(ys, 1).cpu(), S.cpu(), c.cpu())
+        del p
+    (yc, Sc, cc), (yd, Sd, cd) = res["cpu"], res["cuda"]
+    out["block"] = blk = dict(
+        batch=B, prompt=T, decode_steps=steps, out_rel=lm_rel_gap(torch, yd, yc),
+        ssm_rel=lm_rel_gap(torch, Sd, Sc), conv_rel=lm_rel_gap(torch, cd, cc),
+        tol=LM_F32_TOL["wide"], finite=bool(torch.isfinite(yd).all()))
+    check(blk["finite"] and max(blk["out_rel"], blk["ssm_rel"], blk["conv_rel"]) <= blk["tol"],
+          f"11h: the full-width Mamba block, card vs CPU: {blk}")
+    emit(dict(phase="lm_mamba_block_card_vs_cpu", card=smi, d_model=full.d_model,
+              d_inner=full.mamba_expand * full.d_model, d_state=full.mamba_d_state, **blk))
+    del tree, res
+    torch.cuda.empty_cache()
+
+    # prefill(T) + decode(1) against prefill(T + 1), one period in f32, with
+    # one attention block over all keys: the reference's flash attention pads
+    # a ragged last block with zero keys that count in the softmax (its
+    # arithmetic, kept), so with 1,024-key blocks prefills of T and T + 1
+    # dilute every position's attention differently and decode not at all
+    c32 = dataclasses.replace(cut, dtype=torch.float32, attn_block=LM_JAMBA_T + 1)
+    torch.cuda.reset_peak_memory_stats()
+    model = M.init_params(c32, torch.Generator(dev).manual_seed(0), dev)
+    T = LM_JAMBA_T
+    toks = torch.randint(0, cut.vocab, (1, T + 1), generator=torch.Generator().manual_seed(15))
+    toks = toks.to(dev)
+    pre, serve = M.make_prefill_step(c32, M.SHAPES["prefill_32k"]), M.make_serve_step(c32)
+    caches = pre(model, {"tokens": toks[:, :T]}, M.init_caches(c32, 1, T + 1, dev))[1]
+    logits, caches = serve(model, {"token": toks[:, T:]}, caches)
+    want, whole = pre(model, {"tokens": toks}, M.init_caches(c32, 1, T + 1, dev))
+    mam = [(a, b) for a, b in zip(caches, whole) if "ssm" in a]
+    out["prefill_then_decode"] = rec = dict(
+        prompt=T, logits_rel=lm_rel_gap(torch, logits[:, -1], want[:, -1]),
+        ssm_rel=max(lm_rel_gap(torch, a["ssm"], b["ssm"]) for a, b in mam),
+        conv_rel=max(lm_rel_gap(torch, a["conv"], b["conv"]) for a, b in mam),
+        tol=LM_F32_TOL["wide"], peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        finite=bool(torch.isfinite(logits).all() and torch.isfinite(want).all()))
+    check(rec["finite"] and max(rec["logits_rel"], rec["ssm_rel"], rec["conv_rel"]) <= rec["tol"],
+          f"11h: prefill(T) + decode(1) vs prefill(T + 1): {rec}")
+    emit(dict(phase="lm_jamba_prefill_then_decode", card=smi, arch=cut.name,
+              n_layers=cut.n_layers, dtype="float32", **rec))
+    del model, caches, whole, logits, want
+    torch.cuda.empty_cache()
+
+    # serving, bf16; the peak reckoned first: weights + about six
+    # (B, T, d_inner, N) f32 arrays of the scan (da, bx, its halves, h)
+    Bs, Ts, _ = LM_JAMBA_SERVE
+    scan = Bs * Ts * full.mamba_expand * full.d_model * full.mamba_d_state * 4
+    out["reckoned_peak_gb"] = (lm_param_bytes(cut) + 6 * scan) / 1e9
+    emit(dict(phase="lm_jamba_reckoned_peak", card=smi, gb=out["reckoned_peak_gb"],
+              weight_gb=lm_param_bytes(cut) / 1e9, scan_array_gb=scan / 1e9))
+    out["serve"] = lm_serve_summary(lm_serve(
+        torch, smi, cut, LM_JAMBA_SERVE, "jamba_one_period_2x2048", reps=2, profile=True,
+        cut=f"depth {full.n_layers} -> {cut.n_layers} (one period)"), cut)
+    out["seconds"] = time.perf_counter() - t0
     return out
 
 

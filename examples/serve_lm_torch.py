@@ -1,10 +1,14 @@
 """Batched serving on the PyTorch port: prefill a batch of prompts, then
 decode tokens greedily with the KV-cache serve path, reporting per-phase
 token throughput.  The counterpart of ``examples/serve_lm.py``, with the
-same flags plus ``--device`` (the card unless ``--device cpu``).
+same flags plus ``--device`` (the card unless ``--device cpu``).  Every
+architecture of the registry serves: the VLM's patch embeddings and the
+encoder-decoder's frames are drawn from the seed, on the device.
 
     PYTHONPATH=src python examples/serve_lm_torch.py --arch qwen2_1_5b --tokens 32
     PYTHONPATH=src python examples/serve_lm_torch.py --device cpu --arch gemma3_12b
+    PYTHONPATH=src python examples/serve_lm_torch.py --device cpu --arch rwkv6_7b
+    PYTHONPATH=src python examples/serve_lm_torch.py --arch whisper-large-v3
 """
 
 import argparse
@@ -29,17 +33,25 @@ def main():
     dev = resolve_device(args.device)
     cfg = get_smoke(args.arch)
     B = args.batch
-    max_len = args.prompt_len + args.tokens
+    max_len = args.prompt_len + args.tokens + (
+        cfg.n_frontend_tokens if cfg.frontend == "vlm" else 0)
     params = M.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
     caches = M.init_caches(cfg, B, max_len, dev)
-    tokens = torch.randint(0, cfg.vocab, (B, args.prompt_len),
-                           generator=torch.Generator(dev).manual_seed(7), device=dev)
+    gen = torch.Generator(dev).manual_seed(7)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, args.prompt_len), generator=gen,
+                                     device=dev)}
+    if cfg.frontend == "vlm":
+        batch["patch_embeds"] = torch.randn((B, cfg.n_frontend_tokens, cfg.d_model),
+                                            generator=gen, device=dev).to(cfg.dtype)
+    if cfg.enc_dec:
+        batch["frames"] = torch.randn((B, args.prompt_len, cfg.d_model), generator=gen,
+                                      device=dev).to(cfg.dtype)
 
     prefill = M.make_prefill_step(cfg, M.SHAPES["smoke_prefill"])
     serve = M.make_serve_step(cfg)
 
     t0 = time.time()
-    logits, caches = prefill(params, {"tokens": tokens}, caches)
+    logits, caches = prefill(params, batch, caches)
     synchronize(dev)
     t_prefill = time.time() - t0
 

@@ -3,10 +3,8 @@ registry.
 
 ``get_config(name)`` returns the exact published configuration of an LM
 architecture, ``get_smoke(name)`` a CPU-runnable reduction that keeps its
-layer pattern (period) and GQA ratio.  The registry holds the dense decoder
-family and the routed-MoE decoder (``qwen2_moe_a2_7b``), which this package
-serves; the JAX package's other architectures raise ``KeyError`` until
-their slice is ported (ROADMAP §1).
+layer pattern (period), GQA ratio, MoE routing and frontend stubs.  The
+registry holds the JAX package's ten architectures, in its order.
 """
 
 from __future__ import annotations
@@ -14,37 +12,35 @@ from __future__ import annotations
 import importlib
 
 ARCH_IDS = [
+    "paligemma_3b",
     "stablelm_12b",
     "gemma3_12b",
     "qwen2_1_5b",
     "deepseek_7b",
+    "rwkv6_7b",
     "qwen2_moe_a2_7b",
+    "grok_1_314b",
+    "whisper_large_v3",
+    "jamba_v0_1_52b",
 ]
 
 # CLI-friendly aliases (the assignment sheet's ids)
 ALIASES = {
+    "paligemma-3b": "paligemma_3b",
     "stablelm-12b": "stablelm_12b",
     "gemma3-12b": "gemma3_12b",
     "qwen2-1.5b": "qwen2_1_5b",
     "deepseek-7b": "deepseek_7b",
+    "rwkv6-7b": "rwkv6_7b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
-}
-
-#: the JAX package's other architectures, by id and alias: later LM slices
-NOT_PORTED = {
-    "paligemma_3b": "paligemma-3b",
-    "rwkv6_7b": "rwkv6-7b",
-    "grok_1_314b": "grok-1-314b",
-    "whisper_large_v3": "whisper-large-v3",
-    "jamba_v0_1_52b": "jamba-v0.1-52b",
+    "grok-1-314b": "grok_1_314b",
+    "whisper-large-v3": "whisper_large_v3",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
 
 
 def _module(name: str):
     name = ALIASES.get(name, name)
-    if name in NOT_PORTED or name in NOT_PORTED.values():
-        raise KeyError(f"arch {name!r} is not ported yet; ROADMAP §1 lists the LM "
-                       f"slices still to come (ported: {ARCH_IDS})")
     if name not in ARCH_IDS:
         raise KeyError(f"unknown arch {name!r}; have {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{name}")

@@ -1,5 +1,5 @@
-"""LM model zoo: the dense decoder family's serving path (prefill + KV-cache
-decode), the port of :mod:`repro.models`.
+"""LM model zoo: the serving path (prefill + cached decode) of every
+architecture of the registry, the port of :mod:`repro.models`.
 
 Parameters are declared once as :class:`repro_torch.models.param.ParamDef`
 trees laid out as the JAX package lays them out (period positions stacked

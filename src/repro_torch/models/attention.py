@@ -1,9 +1,9 @@
 """GQA attention block: projections + RoPE + flash/decode attention + cache.
 
-The port of ``repro/models/attention.py`` for the dense decoder family:
-grouped KV heads, QKV bias (qwen2), sliding windows (gemma3's 5:1
-local:global), prefix-LM masking and a logit softcap.  Cross-attention
-(Whisper's decoder) is not ported yet (ROADMAP §1.5).
+The port of ``repro/models/attention.py``: grouped KV heads, QKV bias
+(qwen2), sliding windows (gemma3's 5:1 local:global), prefix-LM masking
+(paligemma), a logit softcap (grok) and cross-attention (whisper's decoder,
+over K/V computed once from the encoder's output).
 
 The cache is updated in place: prefill and decode write their keys and
 values into the cache's buffers (the reference's ``dynamic_update_slice``,
@@ -40,7 +40,7 @@ def init_cache(batch: int, max_len: int, n_kv: int, d_head: int,
 
 
 def build_params(d_model: int, n_heads: int, n_kv: int, d_head: int, *,
-                 qkv_bias: bool = False, dtype=torch.bfloat16) -> dict:
+                 qkv_bias: bool = False, cross: bool = False, dtype=torch.bfloat16) -> dict:
     p = {
         "wq": ParamDef((d_model, n_heads, d_head), ("d_model", "heads", "head_dim"), dtype=dtype),
         "wk": ParamDef((d_model, n_kv, d_head), ("d_model", "kv_heads", "head_dim"), dtype=dtype),
@@ -51,6 +51,11 @@ def build_params(d_model: int, n_heads: int, n_kv: int, d_head: int, *,
         p["bq"] = ParamDef((n_heads, d_head), ("heads", "head_dim"), init="zeros", dtype=dtype)
         p["bk"] = ParamDef((n_kv, d_head), ("kv_heads", "head_dim"), init="zeros", dtype=dtype)
         p["bv"] = ParamDef((n_kv, d_head), ("kv_heads", "head_dim"), init="zeros", dtype=dtype)
+    if cross:
+        p["c_wq"] = ParamDef((d_model, n_heads, d_head), ("d_model", "heads", "head_dim"), dtype=dtype)
+        p["c_wk"] = ParamDef((d_model, n_kv, d_head), ("d_model", "kv_heads", "head_dim"), dtype=dtype)
+        p["c_wv"] = ParamDef((d_model, n_kv, d_head), ("d_model", "kv_heads", "head_dim"), dtype=dtype)
+        p["c_wo"] = ParamDef((n_heads, d_head, d_model), ("heads", "head_dim", "d_model"), dtype=dtype)
     return p
 
 
@@ -129,3 +134,28 @@ def _ring_update(buf: torch.Tensor, val: torch.Tensor, pos: int) -> None:
     """Write one timestep into the cache at ``pos``, clamped to the last slot
     (a clamp, not a wrap, as in the reference)."""
     buf[:, min(pos, buf.shape[1] - 1)] = val[:, 0]
+
+
+def cross_attention(
+    p,                                   # the attention module (leaves c_wq, c_wo)
+    x: torch.Tensor,                     # (B, T, d) decoder stream
+    enc_kv: tuple[torch.Tensor, torch.Tensor],  # precomputed (k, v): (B, S_enc, K, Dh)
+    *,
+    n_kv: int,
+    block: int = 1024,
+) -> torch.Tensor:
+    """Whisper-style cross attention (no masking, no rope)."""
+    B, T, d = x.shape
+    H, Dh = p.c_wq.shape[1], p.c_wq.shape[2]
+    G = H // n_kv
+    q = _project(x, p.c_wq).reshape(B, T, n_kv, G, Dh)
+    k, v = enc_kv
+    S = k.shape[1]
+    o = flash_attention(q, k, v, torch.arange(T, device=x.device),
+                        torch.arange(S, device=x.device), causal=False, block=block)
+    return torch.einsum("bthe,hed->btd", o.reshape(B, T, H, Dh), p.c_wo)
+
+
+def encode_cross_kv(p, enc_out: torch.Tensor):
+    """Cross-attention K/V from the encoder's output (computed once, at prefill)."""
+    return _project(enc_out, p.c_wk), _project(enc_out, p.c_wv)

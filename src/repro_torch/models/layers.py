@@ -51,6 +51,17 @@ def layernorm(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     return (c * torch.rsqrt(var + eps) * w + b).to(x.dtype)
 
 
+def groupnorm_heads(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                    eps: float = 64e-5) -> torch.Tensor:
+    """Per-head LayerNorm (RWKV's ln_x / GroupNorm over heads). x: (..., H, D);
+    its eps is RWKV's 64e-5, not ``layernorm``'s 1e-5."""
+    xf = x.to(F32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    c = xf - mu
+    var = torch.mean(c * c, dim=-1, keepdim=True)
+    return (c * torch.rsqrt(var + eps) * w + b).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary embeddings
 # ---------------------------------------------------------------------------

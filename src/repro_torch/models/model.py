@@ -6,7 +6,7 @@ and ``make_serve_step`` keep the reference's names and signatures,
 :class:`repro_torch.models.transformer.DecoderLM` and ``caches`` the list
 ``init_caches`` returns; the steps write the caches in place and return
 them.  Training (``loss_fn``, ``make_train_step``) and the abstract/sharding
-helpers of the dry-run are not ported yet (ROADMAP §1.5).
+helpers of the dry-run are not ported yet (ROADMAP §1, items 3.4 and 3.5).
 
 Matrix-product settings on the card, set by the steps: TF32 off
 (``torch.backends.cuda.matmul.allow_tf32 = False``), so float32 products
@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, transformer
-from repro_torch.models.param import count_params, init_tree, tree_leaves
+from repro_torch.models.param import ParamDef, count_params, init_tree, map_tree, tree_leaves
 from repro_torch.models.transformer import ArchConfig, DecoderLM
 
 
@@ -97,13 +97,26 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                 device: str | torch.device | None = "cuda") -> list[dict]:
     """Zeroed caches on ``device``: one per layer in layer order, each one
-    period slice of ``transformer.build_cache_defs`` with its length a
-    Python int."""
-    transformer.build_cache_defs(cfg, batch, max_len)      # refuses unported kinds
+    period slice of ``transformer.build_cache_defs`` (an attention cache's
+    length a Python int): ``{"attn"}`` (+ ``cross_k``/``cross_v`` of
+    ``enc_len_decode`` frames, which prefill replaces), ``{"ssm", "conv"}``
+    or ``{"wkv", "tm_shift", "cm_shift"}``."""
     dev = resolve_device(device)
-    return [{"attn": attention.init_cache(batch, max_len, cfg.n_kv_heads, cfg.d_head,
-                                          dtype=cfg.dtype, device=dev)}
-            for _ in cfg.layer_specs()]
+    enc_len = cfg.enc_len_decode if cfg.enc_dec else 0
+
+    def zeros(d: ParamDef):
+        return torch.zeros(d.shape, dtype=d.dtype, device=dev)
+
+    out = []
+    for spec in cfg.layer_specs():
+        c = transformer._layer_cache_defs(cfg, spec, batch, max_len, enc_len)
+        attn = c.pop("attn", None)
+        c = map_tree(zeros, c)
+        if attn is not None:
+            c["attn"] = attention.init_cache(batch, max_len, cfg.n_kv_heads, cfg.d_head,
+                                             dtype=cfg.dtype, device=dev)
+        out.append(c)
+    return out
 
 
 # ---------------------------------------------------------------------------

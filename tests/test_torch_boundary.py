@@ -57,6 +57,10 @@ def test_scan_covers_the_package():
             "examples/quickstart_torch.py", "examples/cfd_cavity_torch.py",
             "src/repro_torch/kernels/stencil7.py", "src/repro_torch/models/moe.py",
             "src/repro_torch/configs/qwen2_moe_a2_7b.py"} <= names
+    assert {"src/repro_torch/models/rwkv6.py", "src/repro_torch/models/mamba.py"} | {
+        f"src/repro_torch/configs/{a}.py" for a in (
+            "rwkv6_7b", "jamba_v0_1_52b", "whisper_large_v3", "paligemma_3b",
+            "grok_1_314b")} <= names
 
 
 def test_entry_point_loads_neither_package():

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from _torch_lm import ARCHS, MOE_ARCHS
+from _torch_lm import ARCHS, FAMILY_ARCHS, MOE_ARCHS
 from _torch_port import REPO, run_python
 from repro import configs as jreg
 from repro.configs import stencil_box27 as jbox, stencil_star25_seismic as jrtm
@@ -22,6 +22,7 @@ from repro_torch import configs as treg
 from repro_torch.configs import stencil_box27 as tbox, stencil_star25_seismic as trtm
 from repro_torch.models import model as TM, param as tparam, transformer as ttr
 
+ALL_ARCHS = ARCHS + MOE_ARCHS + FAMILY_ARCHS
 _JDT = {torch.bfloat16: jnp.bfloat16, torch.float32: jnp.float32, torch.int32: jnp.int32}
 
 
@@ -43,7 +44,7 @@ def _fields(cfg) -> dict:
 
 
 @pytest.mark.parametrize("which", ["config", "smoke"])
-@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_configs_equal_the_reference_field_by_field(arch, which):
     get_t, get_j = ((treg.get_config, jreg.get_config) if which == "config"
                     else (treg.get_smoke, jreg.get_smoke))
@@ -53,17 +54,16 @@ def test_configs_equal_the_reference_field_by_field(arch, which):
     assert t.n_periods == j.n_periods and t.sub_quadratic == j.sub_quadratic
 
 
-def test_registry_holds_the_dense_family_and_refuses_the_rest():
-    assert sorted(treg.ARCH_IDS) == sorted(ARCHS + MOE_ARCHS)
-    assert all(jreg.ALIASES[a] == treg.ALIASES[a] for a in treg.ALIASES)
-    assert set(treg.ARCH_IDS) | set(treg.NOT_PORTED) == set(jreg.ARCH_IDS)
-    assert set(treg.NOT_PORTED.values()) | set(treg.ALIASES) == set(jreg.ALIASES)
-    assert treg.get_config("qwen2-1.5b") is treg.get_config("qwen2_1_5b")
-    assert set(treg.all_configs()) == set(ARCHS + MOE_ARCHS)
-    assert treg.get_smoke("qwen2-moe-a2.7b") is treg.get_smoke("qwen2_moe_a2_7b")
-    for name in ("rwkv6_7b", "grok-1-314b", "whisper_large_v3"):
-        with pytest.raises(KeyError, match="not ported yet.*ROADMAP"):
-            treg.get_config(name)
+def test_registry_and_aliases_equal_the_references():
+    """All ten of the JAX package's architectures, in its order, with its
+    aliases; an unknown id raises."""
+    assert treg.ARCH_IDS == jreg.ARCH_IDS and sorted(treg.ARCH_IDS) == sorted(ALL_ARCHS)
+    assert treg.ALIASES == jreg.ALIASES
+    assert not hasattr(treg, "NOT_PORTED") and not hasattr(ttr, "NOT_PORTED")
+    assert list(treg.all_configs()) == jreg.ARCH_IDS
+    for alias, name in treg.ALIASES.items():
+        assert treg.get_config(alias) is treg.get_config(name)
+        assert treg.get_smoke(alias) is treg.get_smoke(name)
     with pytest.raises(KeyError, match="unknown arch"):
         treg.get_smoke("llama_9000")
 
@@ -81,7 +81,7 @@ def _port_leaves(defs) -> list:
                   for path, d in tparam.tree_leaves(defs))
 
 
-@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_full_width_structure_equals_the_reference(arch):
     t, j = treg.get_config(arch), jreg.get_config(arch)
     assert _port_leaves(ttr.build_model_defs(t)) == _jax_leaves(jtr.build_model_defs(j))
@@ -141,12 +141,21 @@ def test_smoke_model_and_caches_follow_the_defs():
         assert c["attn"].length == 0
 
 
-def test_unported_layer_kinds_raise():
-    cfg = treg.get_smoke("qwen2_1_5b")
-    for spec in (ttr.LayerSpec(kind="mamba"), ttr.LayerSpec(kind="rwkv"),
-                 ttr.LayerSpec(kind="attn", cross=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttr.build_model_defs(dataclasses.replace(cfg, period=(spec,)))
+@pytest.mark.parametrize("spec", [dict(kind="mamba"), dict(kind="mamba", moe=True),
+                                  dict(kind="rwkv"), dict(kind="attn", cross=True),
+                                  dict(kind="attn", causal=False)],
+                         ids=["mamba", "mamba-moe", "rwkv", "cross", "encoder"])
+def test_recurrent_and_cross_layer_kinds_build_the_references_defs(spec):
+    """The Mamba, RWKV and cross-attention kinds (and the encoder's layer)
+    build the reference's parameter and cache defs, at the widths of a
+    config that serves none of them."""
+    t, j = treg.get_smoke("qwen2_moe_a2_7b"), jreg.get_smoke("qwen2_moe_a2_7b")
+    ts, js = ttr.LayerSpec(**spec), jtr.LayerSpec(**spec)
+    assert _port_leaves(ttr.build_layer_defs(t, ts)) == _jax_leaves(jtr.build_layer_defs(j, js))
+    assert (_port_leaves(ttr._layer_cache_defs(t, ts, 2, 16, 8))
+            == _jax_leaves(jtr._layer_cache_defs(j, js, 2, 16, 8)))
+    with pytest.raises(ValueError):
+        ttr.build_layer_defs(t, ttr.LayerSpec(kind="conv"))
 
 
 def test_entry_points_default_to_the_card():
@@ -156,6 +165,23 @@ def test_entry_points_default_to_the_card():
     gen = torch.Generator().manual_seed(0)
     if torch.cuda.is_available():
         assert TM.init_caches(cfg, 1, 4)[0]["attn"].k.is_cuda
+        assert TM.init_params(cfg, gen).embed.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            TM.init_caches(cfg, 1, 4)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            TM.init_params(cfg, gen)
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_entry_points_of_every_family_default_to_the_card(arch):
+    """The recurrent, hybrid, encoder-decoder and VLM models and caches go
+    to ``cuda`` without a device argument, and raise where there is none."""
+    cfg = treg.get_smoke(arch)
+    gen = torch.Generator().manual_seed(0)
+    if torch.cuda.is_available():
+        leaves = [t for _, t in tparam.tree_leaves(TM.init_caches(cfg, 1, 4))]
+        assert all(t.is_cuda for t in leaves if isinstance(t, torch.Tensor))
         assert TM.init_params(cfg, gen).embed.is_cuda
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -176,6 +202,24 @@ def test_serve_example_runs_on_the_cpu():
     assert res.returncode == 0, res.stderr
     lines = res.stdout.strip().splitlines()
     assert lines[0].startswith("arch=stablelm_12b_smoke device=cpu batch=2 prompt=8 generated=4")
+    assert lines[-1] == "[]"
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_7b", "whisper_large_v3"])
+def test_serve_example_serves_the_new_families_on_the_cpu(arch):
+    """The recurrent family (WKV state, no KV cache) and the
+    encoder-decoder (frames drawn from the seed) through the example."""
+    res = run_python(f"""
+        import runpy, sys
+        sys.argv = ["serve_lm_torch.py", "--device", "cpu", "--arch", {arch!r},
+                    "--batch", "2", "--prompt-len", "8", "--tokens", "4"]
+        runpy.run_path({str(pathlib.Path(REPO) / "examples" / "serve_lm_torch.py")!r},
+                       run_name="__main__")
+        print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro")))
+    """)
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.strip().splitlines()
+    assert lines[0].startswith(f"arch={arch}_smoke device=cpu batch=2 prompt=8 generated=4")
     assert lines[-1] == "[]"
 
 
