@@ -207,9 +207,8 @@ Phases (one line of output each, JSON where it carries numbers):
    (random, from a seed), 4 prompt tokens and 128 new tokens, the encoder
    timed alone beside the prefill, the cross K/V of the frames' length.
    (j) ``paligemma_3b`` at full width: 8 x (256 patch embeddings + 64
-   tokens) and 64 new tokens.  (g)-(j) profile 5 decode steps each; a
-   serving run's second repetition runs only while the script's clock is
-   below 720 s.
+   tokens) and 64 new tokens.  (f)-(j) serve once each (11c twice), to
+   keep the script in its time limit, and profile 5 decode steps each.
 
 12. the multi-rank solve over ``torch.distributed``: the parent, whose
    kernels are built, starts four ranks on this one card under ``torchrun
@@ -255,6 +254,31 @@ Phases (one line of output each, JSON where it carries numbers):
    with one nccl rank: phase 4's residuals and launch counts bit for bit.
    A rank that fails, or ranks that pass their time limit (killed as a
    process group), fail the phase.
+
+13. LM training (``repro_torch.launch.train``, ``models.model.make_train_step``,
+   ``optim/``, ``data/``), which reaches no kernel: none of its runs may
+   launch K1-K6.  (a) The ten smoke configs (B 2, T 32), one train step
+   each from one set of seeded weights: in f32 on the card and on the CPU,
+   the loss within 16 ulps, every gradient leaf within the CPU parity
+   tests' tolerance of its largest |g| (32 ulps; RWKV 1,024, Jamba 8,192:
+   the reference's own gradients move by 440 and 4,850 under a 1-ulp change
+   of the weights), the parameters after the step within the flip bound
+   (2 lr + 4 ulps: AdamW's first step is about lr sign(g)); in bf16 on the
+   card, a finite loss within 2^-5 of the f32 one, the same step twice bit
+   for bit, and remat's gradients equal to none's bit for bit.  (b)
+   Qwen2-1.5B at full width, 2 x 4,096 (``train_4k``'s length at one card's
+   batch), bf16, 6 steps through ``launch/train``'s entry: finite losses,
+   the learning rates the schedule's, each step's ms, the warm step (the
+   median of steps 2-5), tokens/s and peak memory beside ``train_bounds``
+   (the matrix products at 989 TFLOP/s, AdamW's bytes at 3.35 TB/s, and
+   labelled the attention's f32-widened products at 67 TFLOP/s); one more
+   warm step under torch.profiler for the launches, idle share and largest
+   kernels.  (c) The runner at full width, depth cut to 2, 2 x 4,096, 4
+   steps with a checkpoint every 2 and a fault injected at step 3: the
+   final state equals an unfaulted loop's bit for bit, and the replayed
+   losses too.  (d) ``examples/train_lm_torch.py --hundred-m`` (200 steps,
+   a fault half way): the loss falls by more than 0.5 and one restart
+   happens.  (e) No K1-K6 launch across the phase.
 
 ``--profile`` adds a torch.profiler trace of a few iterations of each
 measured path (phases 4, 5, 7 and 8b) and of 5 decode steps of 11c:
@@ -2622,10 +2646,10 @@ def phase11(torch, smi: str, profile: bool = False) -> dict:
     out["jamba"] = phase11h(torch, smi)
     out["whisper"] = lm_serve_summary(lm_serve(
         torch, smi, get_config(LM_WHISPER), LM_WHISPER_SERVE, "whisper_serve_8x1500",
-        reps=2, profile=True, frames=LM_WHISPER_FRAMES))
+        profile=True, frames=LM_WHISPER_FRAMES))
     out["paligemma"] = lm_serve_summary(lm_serve(
         torch, smi, get_config(LM_PALIGEMMA), LM_PALIGEMMA_SERVE, "paligemma_serve_8x(256+64)",
-        reps=2, profile=True))
+        profile=True))
 
     after = launch_counts()
     check(after == before, f"11: the LM runs launched kernels: {before} -> {after}")
@@ -2676,7 +2700,7 @@ def phase11f(torch, smi: str) -> dict:
 
     B, T, new = LM_SERVE
     out["serve"] = lm_serve_summary(
-        lm_serve(torch, smi, full, LM_SERVE, "moe_serve_8x2048", reps=2, profile=True), full)
+        lm_serve(torch, smi, full, LM_SERVE, "moe_serve_8x2048", profile=True), full)
     out["seconds"] = time.perf_counter() - t0
     emit(dict(phase="lm_moe_serve", card=smi, arch=full.name, n_layers=full.n_layers,
               batch=B, prompt=T, new_tokens=new, seconds=out["seconds"]))
@@ -2784,7 +2808,7 @@ def phase11g(torch, smi: str) -> dict:
     torch.cuda.empty_cache()
 
     out["serve"] = lm_serve_summary(lm_serve(
-        torch, smi, full, LM_SERVE, "rwkv6_serve_8x2048", reps=2, profile=True))
+        torch, smi, full, LM_SERVE, "rwkv6_serve_8x2048", profile=True))
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -2873,7 +2897,7 @@ def phase11h(torch, smi: str) -> dict:
     emit(dict(phase="lm_jamba_reckoned_peak", card=smi, gb=out["reckoned_peak_gb"],
               weight_gb=lm_param_bytes(cut) / 1e9, scan_array_gb=scan / 1e9))
     out["serve"] = lm_serve_summary(lm_serve(
-        torch, smi, cut, LM_JAMBA_SERVE, "jamba_one_period_2x2048", reps=2, profile=True,
+        torch, smi, cut, LM_JAMBA_SERVE, "jamba_one_period_2x2048", profile=True,
         cut=f"depth {full.n_layers} -> {cut.n_layers} (one period)"), cut)
     out["seconds"] = time.perf_counter() - t0
     return out
@@ -3509,6 +3533,337 @@ def phase12(torch, smi: str, phase4: dict, ghia_centerline) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: LM training (no kernel on its path)
+# ---------------------------------------------------------------------------
+
+#: 13a: batch and tokens of the smoke configs' train step, card against CPU
+TRAIN_SMOKE = (2, 32)
+#: 13a: f32 gradients, card against CPU, in f32 ulps of each leaf's largest
+#: |g|: the tolerances that hold the port to the JAX package on the CPU
+#: (tests/_torch_train.py): RWKV's and Jamba's gradients move by 440 and
+#: 4,850 ulps in the reference itself under a 1-ulp change of the weights
+TRAIN_GRAD_ULPS = {"rwkv6_7b": 1024, "jamba_v0_1_52b": 8192}
+TRAIN_GRAD_ULPS_DEFAULT = 32
+#: 13a: the f32 loss, card against CPU, in ulps; the bf16 loss over the CPU's
+#: f32 loss within 1 +- TRAIN_BF16_LOSS_REL
+TRAIN_LOSS_ULPS, TRAIN_BF16_LOSS_REL = 16, 2.0 ** -5
+#: 13b: Qwen2-1.5B at full width: batch, sequence (train_4k's 4,096), steps;
+#: the warm steps are 2-5 (counted from 1), their median the step time
+TRAIN_ARCH, TRAIN_FULL, TRAIN_WARM = "qwen2_1_5b", (2, 4096, 6), slice(1, 5)
+#: 13c: the runner at full width: steps, checkpoint interval, the faulted step,
+#: and the depth (cut from 28: a full-depth checkpoint is 15.4 GB, and its
+#: writes and read took 135 s of a 4-step run)
+TRAIN_FAULT, TRAIN_FAULT_LAYERS = (4, 2, 3), 2
+
+
+def train_batch(torch, cfg, seed: int = 4):
+    """A numpy training batch of the smoke shape (:data:`TRAIN_SMOKE`): tokens,
+    labels, a loss mask with a fifth of the positions off, and the VLM's
+    patch embeddings or the encoder's frames (f32)."""
+    import numpy as np
+
+    B, T = TRAIN_SMOKE
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab, (B, T)).astype(np.int32),
+           "labels": rng.integers(0, cfg.vocab, (B, T)).astype(np.int32),
+           "loss_mask": (rng.random((B, T)) > 0.2).astype(np.float32)}
+    if cfg.frontend == "vlm":
+        out["patch_embeds"] = rng.standard_normal(
+            (B, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.enc_dec:
+        out["frames"] = rng.standard_normal((B, LM_SMOKE_FRAMES, cfg.d_model)).astype(
+            np.float32)
+    return out
+
+
+def train_grads(torch, cfg, tree: dict, batch: dict):
+    """``loss_fn``'s total and its gradients (autograd), by leaf path."""
+    from repro_torch.models import model as M
+    from repro_torch.models.param import map_tree, tree_leaves
+
+    M._matmul_flags(tree_leaves(tree)[0][1].device)
+    live = {k: t.detach().requires_grad_() for k, t in tree_leaves(tree)}
+    p = map_tree(lambda k, _: live[k], tree, with_path=True)
+    total, _ = M.loss_fn(cfg, p, batch)
+    return total.detach(), dict(zip(live, torch.autograd.grad(total, list(live.values()))))
+
+
+def trees_equal(torch, a, b) -> bool:
+    """Two trees of tensors (parameters, ``AdamWState``, metrics) bit for bit."""
+    from repro_torch.models.param import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        ka == kb and torch.equal(x, y) for (ka, x), (kb, y) in zip(la, lb))
+
+
+def train_smoke(torch, arch: str) -> dict:
+    """13a for one architecture: f32 on the card against the CPU (loss,
+    gradients, one step within the flip bound), then bf16 on the card
+    (finite, loss ratio, the same step twice, remat against none)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import model as M
+    from repro_torch.models.param import map_tree, tree_leaves
+    from repro_torch.optim import adamw_init
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    cfg16 = get_smoke(arch)
+    cfg32 = dataclasses.replace(cfg16, dtype=torch.float32)
+    tree16 = M.init_train_params(cfg16, torch.Generator().manual_seed(0), cpu)
+    tree32 = map_tree(lambda t: t.float(), tree16)
+    nb = train_batch(torch, cfg16)
+    sides = {}
+    for side, d in (("cpu", cpu), ("card", dev)):
+        tree = map_tree(lambda t: t.to(d), tree32)
+        batch = to_device(cfg32, nb, d)
+        total, grads = train_grads(torch, cfg32, tree, batch)
+        p2, o2, m = M.make_train_step(cfg32)(tree, adamw_init(tree), batch)
+        sides[side] = (total, grads, p2, m)
+    (tc, gc, pc, mc), (tg, gg, pg, mg) = sides["cpu"], sides["card"]
+    ulps = lambda a, b: float((a.double().cpu() - b.double().cpu()).abs().max()
+                              / (EPS_F32 * max(float(b.abs().max()), 1e-30)))
+    out = dict(loss_ulps=ulps(tg, tc), grad_ulps={k: ulps(gg[k], gc[k]) for k in gc},
+               grad_tol_ulps=TRAIN_GRAD_ULPS.get(arch, TRAIN_GRAD_ULPS_DEFAULT))
+    out["grad_ulps_max"] = max(out["grad_ulps"].values())
+    check(out["loss_ulps"] <= TRAIN_LOSS_ULPS, f"13a {arch}: f32 loss {out['loss_ulps']!r} ulps")
+    check(out["grad_ulps_max"] <= out["grad_tol_ulps"],
+          f"13a {arch}: f32 gradients {out['grad_ulps_max']!r} ulps > {out['grad_tol_ulps']}")
+    lr = float(mc["lr"])
+    check(float(mg["lr"]) == lr and int(mg["grad_step"]) == 1, f"13a {arch}: metrics {mg}")
+    flips, worst = 0, 0.0
+    for (k, a), (_, b) in zip(tree_leaves(pg), tree_leaves(pc)):
+        a, b = a.double().cpu(), b.double()
+        gap = (a - b).abs()
+        ulp4 = 4 * EPS_F32 * b.abs()
+        worst = max(worst, float((gap - ulp4).max() / (2 * lr)))
+        flips += int((gap > ulp4).sum())
+    out.update(flipped_entries=flips, worst_over_flip_bound=worst, lr=lr)
+    check(worst <= 1.0, f"13a {arch}: parameters after the step beyond 2 lr + 4 ulps ({worst!r})")
+
+    # bf16 on the card: the configs' own dtype
+    tree = map_tree(lambda t: t.to(dev), tree16)
+    batch = to_device(cfg16, nb, dev)
+    step = M.make_train_step(cfg16)
+    runs = [step(tree, adamw_init(tree), batch) for _ in range(2)]
+    loss16 = float(runs[0][2]["loss"])
+    out.update(bf16_loss=loss16, f32_loss_cpu=float(mc["loss"]),
+               bf16_same_bits_twice=trees_equal(torch, runs[0], runs[1]))
+    check(math.isfinite(loss16) and abs(loss16 / float(mc["loss"]) - 1) <= TRAIN_BF16_LOSS_REL,
+          f"13a {arch}: bf16 loss {loss16!r} against the f32 {float(mc['loss'])!r}")
+    check(out["bf16_same_bits_twice"], f"13a {arch}: the same bf16 step twice differs")
+    g_on = train_grads(torch, cfg16, tree, batch)
+    g_off = train_grads(torch, dataclasses.replace(cfg16, remat=False), tree, batch)
+    out["remat_same_bits"] = bool(torch.equal(g_on[0], g_off[0]) and all(
+        torch.equal(g_on[1][k], g_off[1][k]) for k in g_on[1]))
+    check(out["remat_same_bits"], f"13a {arch}: remat changes the bf16 gradients")
+    return out
+
+
+def train_bounds(cfg, B: int, T: int) -> dict:
+    """The least time a full-width train step could take, with
+    :func:`lm_bounds`' conventions: the matrix products at 989 TFLOP/s
+    (6 N tokens for the forward and backward of every matrix parameter a
+    token passes, the tied head included; 2 N_layers tokens for the remat
+    forward; every attention block as the reference computes it, its
+    forward, remat forward and backward, 4 x 4 B H Dh T^2 per layer) and,
+    beside it, AdamW's bytes at 3.35 TB/s (22 per parameter: read the
+    bf16 parameter and gradient and the f32 moments, write the parameter
+    and moments).  Labelled beside them: the attention products at the
+    f32 peak, since the port (as the reference) widens them to f32."""
+    from repro_torch.models import model as M
+
+    tokens = B * T
+    layers = sum(lm_matrix_params(cfg, s) for s in cfg.layer_specs())
+    head = cfg.d_model * cfg.vocab
+    # every query against every key: the reference computes each KV block whole
+    attn = 4 * 4 * B * cfg.n_heads * cfg.d_head * T * T * sum(
+        s.kind == "attn" for s in cfg.layer_specs())
+    flops = 6 * (layers + head) * tokens + 2 * layers * tokens + attn
+    n = M.n_params(cfg)
+    opt_bytes = 22 * n
+    return dict(train_flops=flops, attention_flops=attn, attention_share=attn / flops,
+                products_bound_ms=flops / PEAK_BF16_FLOPS * 1e3,
+                optimizer_bytes=opt_bytes, optimizer_bound_ms=opt_bytes / PEAK_BYTES_PER_S * 1e3,
+                attention_at_f32_peak_ms=attn / PEAK_F32_FLOPS * 1e3, n_params=n)
+
+
+def train_full(torch, smi: str) -> dict:
+    """13b: ``launch/train``'s CLI entry at Qwen2-1.5B's full width, then
+    one warm step under the profiler."""
+    import statistics
+
+    from repro_torch.launch import train as LT
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init, cosine_lr
+
+    B, T, steps = TRAIN_FULL
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    res = LT.main(["--arch", TRAIN_ARCH, "--full", "--batch", str(B), "--seq", str(T),
+                   "--steps", str(steps), "--log-every", "1"])
+    want_lr = [float(cosine_lr(s, total=steps)) for s in range(steps)]
+    warm = statistics.median(res["step_ms"][TRAIN_WARM])
+    cfg = LT.get_config(TRAIN_ARCH)
+    out = dict(phase="train_full", card=smi, arch=cfg.name, n_layers=cfg.n_layers, batch=B,
+               seq=T, steps=steps, dtype="bfloat16", remat=cfg.remat, losses=res["losses"],
+               lrs=res["lrs"], step_ms=res["step_ms"], warm_ms_per_step=warm,
+               tokens_per_s=B * T / (warm * 1e-3), peak_memory_gb=res["peak_memory_gb"],
+               kernel_launches=res["kernel_launches"], **train_bounds(cfg, B, T))
+    check(len(res["losses"]) == steps and all(math.isfinite(x) for x in res["losses"]),
+          f"13b: losses {res['losses']}")
+    check(res["lrs"] == want_lr, f"13b: lr {res['lrs']} != the schedule's {want_lr}")
+    # one warm step under the profiler: launches, idle share, where the time goes
+    cfg, data = LT.build(TRAIN_ARCH, full=True, seq_len=T, global_batch=B)
+    dev = torch.device("cuda")
+    params = M.init_train_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    state = {"p": params, "o": adamw_init(params)}
+    stepper = LT.make_stepper(cfg, dev, total_steps=steps)
+    batch = data.batch_at(0)
+
+    def one_step():
+        state["p"], state["o"], m = stepper(state["p"], state["o"], batch)
+        float(m["loss"])
+
+    prof = profile_window(torch, one_step)
+    top: dict = {}          # the 16 largest kernels, summed under their names' first 90 chars
+    for k, v in prof["kernels_by_device_ms"].items():
+        top[k[:90]] = top.get(k[:90], 0.0) + v["ms"]
+    out["profile"] = dict(launches_per_step=prof["launches"], idle_share=prof["idle_share"],
+                          window_ms=prof["window_ms"], busy_ms=prof["busy_ms"],
+                          top_kernels_ms=top)
+    del params, state
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
+def train_fault(torch, smi: str) -> dict:
+    """13c: the runner at full width, depth cut to ``TRAIN_FAULT_LAYERS``
+    (``TRAIN_FAULT``: steps, checkpoint interval, the faulted step), against
+    an unfaulted plain loop of the same steps: the final parameters and
+    moments bit for bit."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train as LT
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import FaultTolerantRunner, RunnerConfig
+
+    steps, every, fault = TRAIN_FAULT
+    B, T, _ = TRAIN_FULL
+    dev = torch.device("cuda")
+    full, data = LT.build(TRAIN_ARCH, full=True, seq_len=T, global_batch=B)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_FAULT_LAYERS)
+    fresh = lambda: M.init_train_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.empty_cache()
+    p = fresh()
+    o = adamw_init(p)
+    stepper = LT.make_stepper(cfg, dev, total_steps=steps)
+    plain = []
+    for s in range(steps):
+        p, o, m = stepper(p, o, data.batch_at(s))
+        plain.append(float(m["loss"]))
+    want = (p, o)
+    ckdir = ROOT / "build" / "chip_smoke_train_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    armed = {"on": True}
+
+    def hook(step):
+        if armed["on"] and step == fault:
+            armed["on"] = False
+            raise RuntimeError("injected fault")
+
+    t0 = time.perf_counter()
+    p0 = fresh()
+    runner = FaultTolerantRunner(RunnerConfig(total_steps=steps, checkpoint_every=every),
+                                 train_step=stepper, data=data, ckpt=CheckpointManager(
+                                     str(ckdir), keep=1), failure_hook=hook)
+    got = runner.run(p0, adamw_init(p0))
+    seconds = time.perf_counter() - t0
+    ck_gb = sum(f.stat().st_size for f in ckdir.iterdir()) / 1e9
+    shutil.rmtree(ckdir, ignore_errors=True)
+    hist = runner.metrics_history
+    out = dict(phase="train_fault", card=smi, arch=cfg.name, n_layers=cfg.n_layers,
+               cut=f"depth {full.n_layers} -> {cfg.n_layers}", batch=B, seq=T, steps=steps,
+               checkpoint_every=every, fault_at=fault, restarts=runner.restarts,
+               recorded_steps=[h["step"] for h in hist], seconds=seconds,
+               checkpoint_gb=ck_gb, same_bits=trees_equal(torch, got, want),
+               losses_equal=[h["loss"] for h in hist if h["step"] < steps] == [
+                   plain[h["step"]] for h in hist])
+    check(runner.restarts == 1, f"13c: {runner.restarts} restarts")
+    check(out["same_bits"], "13c: the replayed run's state differs from the unfaulted run's")
+    check(out["losses_equal"], "13c: a replayed step's loss differs")
+    del want, got, p, o, p0
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def train_example(torch, smi: str) -> dict:
+    """13d: ``examples/train_lm_torch.py --hundred-m`` in this process (its
+    own assertion: the loss falls by more than 0.5; a restart happens)."""
+    import contextlib
+    import io
+    import runpy
+
+    path = ROOT / "examples" / "train_lm_torch.py"
+    argv, sys.argv = sys.argv, [str(path), "--hundred-m"]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(str(path), run_name="__main__")
+        ok = True
+    except AssertionError as e:
+        ok, buf = False, io.StringIO(buf.getvalue() + f"\nAssertionError: {e}")
+    finally:
+        sys.argv = argv
+    text = buf.getvalue()
+    m = re.search(r"first-20-avg (\S+) -> last-20-avg (\S+)", text)
+    r = re.search(r"(\d+) recorded steps in \d+s \(restarts survived: (\d+)\)", text)
+    out = dict(phase="train_example", card=smi, seconds=time.perf_counter() - t0, ok=ok,
+               first20=float(m.group(1)) if m else None, last20=float(m.group(2)) if m else None,
+               recorded_steps=int(r.group(1)) if r else None,
+               restarts=int(r.group(2)) if r else None)
+    check(ok and m is not None and out["last20"] < out["first20"] - 0.5,
+          f"13d: the example's loss did not fall by 0.5: {text[-400:]}")
+    check(out["restarts"] == 1, f"13d: {out['restarts']} restarts")
+    emit(out)
+    return out
+
+
+def phase13(torch, smi: str) -> dict:
+    """13a-13e (module docstring): LM training on the card; none of it may
+    launch a kernel."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.kernels import launch_counts
+
+    before = launch_counts()
+    t0 = time.perf_counter()
+    out: dict = {"smoke": {}}
+    for arch in ARCH_IDS:
+        out["smoke"][arch] = train_smoke(torch, arch)
+    emit(dict(phase="train_smoke_card_vs_cpu", card=smi, batch=TRAIN_SMOKE[0],
+              tokens=TRAIN_SMOKE[1], loss_tol_ulps=TRAIN_LOSS_ULPS,
+              seconds=time.perf_counter() - t0,
+              **{a: {k: v for k, v in r.items() if k != "grad_ulps"}
+                 for a, r in out["smoke"].items()}))
+    out["full"] = train_full(torch, smi)
+    out["fault"] = train_fault(torch, smi)
+    out["example"] = train_example(torch, smi)
+    after = launch_counts()
+    out["kernel_launches"] = {k: after[k] - before[k] for k in after}
+    check(after == before, f"13: the training runs launched kernels: {before} -> {after}")
+    out["seconds"] = time.perf_counter() - t0
+    emit(dict(phase="train_clock", card=smi, seconds=out["seconds"],
+              kernel_launches=out["kernel_launches"]))
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3691,6 +4046,9 @@ def main(argv=None) -> int:
     # -- phase 12: the multi-rank solve, four gloo ranks on this card ----------
     record["ranks"] = phase12(torch, smi, record["paper_mesh"],
                               record["cfd"].get("ghia", {}).get("centerline"))
+
+    # -- phase 13: LM training ---------------------------------------------------
+    record["train"] = phase13(torch, smi)
 
     # -- the kernels line ------------------------------------------------------
     path_counts = {"paper_mesh": counts, "batched": counts5, "ref_fused": counts7}

@@ -13,7 +13,9 @@ JAX package wrote restores here, and one written here restores there.
 
 * Leaf order: the reference flattens with ``jax.tree.flatten``, which sorts
   dict keys; :func:`flatten` walks tuples, lists and dicts the same way (a
-  ``None`` holds no leaf); every leaf is a tensor.  The manifest's
+  ``None`` holds no leaf), and a dataclass record (the optimizer's
+  ``AdamWState``) by its fields in declaration order, as JAX walks a
+  registered dataclass; every leaf is a tensor.  The manifest's
   ``treedef`` string is informative; restore checks ``n_leaves``.
 * bfloat16: npz holds no bfloat16, so such leaves are stored as ``uint16``
   bit views with the logical dtype ``"bfloat16"`` in the manifest, and
@@ -28,6 +30,7 @@ path.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -45,9 +48,18 @@ _VIEW_AS = {"bfloat16": np.uint16}
 
 def flatten(tree) -> tuple[list, object]:
     """(leaves, treedef) in ``jax.tree.flatten``'s order: tuples and lists
-    in order, dicts by sorted key, ``None`` empty, anything else a leaf."""
+    in order, dicts by sorted key, a dataclass record by its fields,
+    ``None`` empty, anything else a leaf."""
     if tree is None:
         return [], None
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        names = [f.name for f in dataclasses.fields(tree)]
+        leaves, defs = [], []
+        for n in names:
+            sub_leaves, sub_def = flatten(getattr(tree, n))
+            leaves += sub_leaves
+            defs.append(sub_def)
+        return leaves, ("record", type(tree), names, defs)
     if isinstance(tree, (tuple, list)):
         leaves, defs = [], []
         for sub in tree:
@@ -75,6 +87,8 @@ def unflatten(treedef, leaves: list):
             return None
         if d == "*":
             return next(it)
+        if d[0] == "record":
+            return d[1](**{n: build(sub) for n, sub in zip(d[2], d[3])})
         if d[0] is dict:
             return {k: build(sub) for k, sub in zip(d[1], d[2])}
         return d[0](build(sub) for sub in d[1])
@@ -90,6 +104,8 @@ def treedef_str(treedef) -> str:
             return "None"
         if d == "*":
             return "*"
+        if d[0] == "record":
+            return f"CustomNode({d[1].__name__}[()], [{', '.join(show(x) for x in d[3])}])"
         if d[0] is dict:
             return "{" + ", ".join(f"'{k}': {show(s)}" for k, s in zip(d[1], d[2])) + "}"
         inner = ", ".join(show(s) for s in d[1])
@@ -111,8 +127,9 @@ def _host(leaf: torch.Tensor) -> tuple[np.ndarray, str]:
 
 
 def _restore_leaf(arr: np.ndarray, logical: str, like: torch.Tensor) -> torch.Tensor:
-    """A stored array as a tensor on ``like``'s device and in its dtype."""
-    arr = np.ascontiguousarray(arr)
+    """A stored array as a tensor on ``like``'s device and in its dtype (a
+    0-d array stays 0-d: ``ascontiguousarray`` alone returns it 1-d)."""
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)
     if logical == "bfloat16":
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:

@@ -1,4 +1,5 @@
-"""Shared NN layers: norms, RoPE, flash-style and decode attention, activations.
+"""Shared NN layers: norms, RoPE, flash-style and decode attention,
+activations and the training loss.
 
 The port of ``repro/models/layers.py``.  Attention is written flash-style
 (a loop over KV blocks with online-softmax f32 accumulators) exactly as the
@@ -191,3 +192,27 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return gelu_tanh(x.to(F32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
+                       *, z_loss: float = 1e-4) -> torch.Tensor:
+    """Next-token cross-entropy, masked mean over tokens, plus ``z_loss`` x
+    lse^2.  The logits (B, T, V) stay in their dtype: the max is exact in
+    it and ``logits - m`` rounds in it, then ``exp`` and the sum run in
+    f32, as in the reference.  The gold logit is a ``gather`` where the
+    reference takes a one-hot einsum with f32 output: only one term of that
+    sum is non-zero, so both give the logit itself and the same gradient
+    (the upstream gradient, rounded to the logits' dtype, at the target)."""
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    se = torch.sum(torch.exp((logits - m).to(F32)), dim=-1)
+    lse = m[..., 0].to(F32) + torch.log(se)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0].to(F32)
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * torch.square(lse)
+    mask = mask.to(F32)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

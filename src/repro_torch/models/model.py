@@ -1,12 +1,21 @@
-"""Model-level serving API: prefill_step and serve_step (decode).
+"""Model-level API: train_step, prefill_step and serve_step (decode).
 
-The port of ``repro/models/model.py``'s serving half.  ``make_prefill_step``
-and ``make_serve_step`` keep the reference's names and signatures,
-``step(params, batch, caches) -> (logits, caches)``, where ``params`` is a
-:class:`repro_torch.models.transformer.DecoderLM` and ``caches`` the list
-``init_caches`` returns; the steps write the caches in place and return
-them.  Training (``loss_fn``, ``make_train_step``) and the abstract/sharding
-helpers of the dry-run are not ported yet (ROADMAP §1, items 3.4 and 3.5).
+The port of ``repro/models/model.py``'s steps.  Serving:
+``make_prefill_step`` and ``make_serve_step`` keep the reference's names and
+signatures, ``step(params, batch, caches) -> (logits, caches)``, where
+``params`` is a :class:`repro_torch.models.transformer.DecoderLM` and
+``caches`` the list ``init_caches`` returns; the steps write the caches in
+place and return them, under ``torch.inference_mode``.
+
+Training: ``loss_fn`` (the chunked-over-sequence cross-entropy plus the MoE
+auxiliary loss) and ``make_train_step(cfg, lr_peak, total_steps)``, whose
+``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``
+takes the stacked parameter tree (``init_train_params``, or the JAX
+package's tree through ``param.tree_from_numpy``) and an
+``optim.AdamWState``.  The gradients are autograd's, as the reference's are
+``jax.value_and_grad``'s; the step returns new trees and leaves its inputs
+as they were.  The abstract/sharding helpers of the dry-run are not ported
+(ROADMAP §1, item 3.5).
 
 Matrix-product settings on the card, set by the steps: TF32 off
 (``torch.backends.cuda.matmul.allow_tf32 = False``), so float32 products
@@ -26,8 +35,10 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, transformer
+from repro_torch.models.layers import cross_entropy_loss
 from repro_torch.models.param import ParamDef, count_params, init_tree, map_tree, tree_leaves
 from repro_torch.models.transformer import ArchConfig, DecoderLM
+from repro_torch.optim.adamw import AdamWState, adamw_update, cosine_lr
 
 
 # ---------------------------------------------------------------------------
@@ -86,12 +97,21 @@ def n_active_params(cfg: ArchConfig) -> int:
 # Real initialization
 # ---------------------------------------------------------------------------
 
+def init_train_params(cfg: ArchConfig, gen: torch.Generator,
+                      device: str | torch.device | None = "cuda") -> dict:
+    """Random weights drawn on ``gen`` (on its device), placed on ``device``
+    (the card unless the caller names the CPU), as the stacked parameter
+    tree of ``build_model_defs`` (the reference's layout, leaf for leaf):
+    the trainable state."""
+    dev = resolve_device(device)
+    return init_tree(transformer.build_model_defs(cfg), gen, dev)
+
+
 def init_params(cfg: ArchConfig, gen: torch.Generator,
                 device: str | torch.device | None = "cuda") -> DecoderLM:
-    """Random weights drawn on ``gen`` (on its device), placed on ``device``
-    (the card unless the caller names the CPU)."""
-    dev = resolve_device(device)
-    return DecoderLM.from_tree(cfg, init_tree(transformer.build_model_defs(cfg), gen, dev))
+    """:func:`init_train_params`'s weights as the serving model (views of
+    the stacked tensors: nothing is copied)."""
+    return DecoderLM.from_tree(cfg, init_train_params(cfg, gen, device))
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
@@ -127,6 +147,65 @@ def _matmul_flags(device: torch.device) -> None:
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *,
+            aux_weight: float = 0.01, loss_chunks: int = 8):
+    """Chunked-over-sequence loss: the (tokens x vocab) logits of one chunk
+    at a time, a Python loop over ``loss_chunks`` (or the largest divisor of
+    the text length below it).  Returns (total, (loss, aux)).  ``params``:
+    the stacked tree; the VLM's patch positions are dropped from the hidden
+    states before the head."""
+    view = transformer.model_view(cfg, params)
+    hidden, _, aux = transformer.forward(cfg, view, batch, mode="train", return_logits=False)
+    if cfg.frontend == "vlm":
+        hidden = hidden[:, batch["patch_embeds"].shape[1]:]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(batch["labels"].shape, dtype=torch.float32, device=hidden.device)
+
+    T = hidden.shape[1]
+    n = loss_chunks
+    while T % n:
+        n -= 1
+    csz = T // n
+    num = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n):
+        sl = slice(i * csz, (i + 1) * csz)
+        logits_c = transformer.apply_head(cfg, view, hidden[:, sl])
+        num = num + cross_entropy_loss(logits_c, batch["labels"][:, sl], mask[:, sl]) \
+            * torch.clamp(mask[:, sl].sum(), min=1.0)
+    loss = num / torch.clamp(mask.sum(), min=1.0)
+    return loss + aux_weight * aux, (loss, aux)
+
+
+def make_train_step(cfg: ArchConfig, *, lr_peak: float = 3e-4, total_steps: int = 10000):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state, metrics).
+
+    ``params``: the stacked tree; ``batch``: tensors on its device.  The
+    metrics are the reference's, as tensors: ``loss``, ``aux_loss``,
+    ``total_loss``, ``lr`` and ``grad_step``.  A leaf no gradient reaches
+    gets a zero gradient, as under ``jax.value_and_grad``."""
+
+    def train_step(params: dict, opt_state: AdamWState, batch: dict):
+        leaves = tree_leaves(params)
+        _matmul_flags(leaves[0][1].device)
+        live = {path: t.detach().requires_grad_() for path, t in leaves}
+        p = map_tree(lambda path, _: live[path], params, with_path=True)
+        with torch.enable_grad():
+            total, (loss, aux) = loss_fn(cfg, p, batch)
+            grads = torch.autograd.grad(total, list(live.values()), allow_unused=True)
+        got = {path: torch.zeros_like(t) if g is None else g
+               for (path, t), g in zip(live.items(), grads)}
+        grads = map_tree(lambda path, _: got[path], params, with_path=True)
+        lr = cosine_lr(opt_state.count, peak=lr_peak, total=total_steps)
+        params, opt_state = adamw_update(params, grads, opt_state, lr=lr)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+        metrics = {"loss": loss.detach(), "aux_loss": aux.detach(),
+                   "total_loss": total.detach(), "lr": lr, "grad_step": opt_state.count}
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig, shape: ShapeSpec):

@@ -59,6 +59,22 @@ def map_tree(fn: Callable[..., Any], tree, *, with_path: bool = False, _prefix: 
     return fn(_prefix.rstrip("/"), tree) if with_path else fn(tree)
 
 
+def map_trees(fn: Callable[..., Any], tree, *others):
+    """``fn(leaf, *other_leaves)`` over trees of one structure (the first
+    tree's: dicts, lists, tuples and dataclass records), returning a tree of
+    that structure."""
+    if isinstance(tree, dict):
+        return {k: map_trees(fn, v, *(o[k] for o in others)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_trees(fn, v, *(o[i] for o in others))
+                          for i, v in enumerate(tree))
+    if _is_record(tree):
+        return dataclasses.replace(tree, **{
+            f.name: map_trees(fn, getattr(tree, f.name), *(getattr(o, f.name) for o in others))
+            for f in dataclasses.fields(tree)})
+    return fn(tree, *others)
+
+
 def tree_leaves(tree, prefix: str = "") -> list[tuple[str, Any]]:
     """``(path, leaf)`` pairs, dict keys sorted (``jax.tree.flatten``'s order)."""
     if isinstance(tree, dict):
@@ -121,5 +137,21 @@ def params_from_numpy(cfg, tree, device: str | torch.device | None = "cuda"):
     from repro_torch.models.transformer import DecoderLM
 
     dev = resolve_device(device)
-    return DecoderLM.from_tree(cfg, map_tree(
-        lambda a: tensor_from_numpy(np.asarray(a), dev), tree))
+    return DecoderLM.from_tree(cfg, tree_from_numpy(tree, dev))
+
+
+def tree_from_numpy(tree, device: str | torch.device | None = "cuda"):
+    """A tree of numpy arrays (the JAX package's stacked parameter tree, its
+    gradients or an ``AdamWState``, bfloat16 bits kept) as the same tree of
+    tensors on ``device``: the training layout, leaf for leaf."""
+    dev = resolve_device(device)
+    return map_tree(lambda a: tensor_from_numpy(np.asarray(a), dev), tree)
+
+
+def tree_to_numpy(tree):
+    """The reverse of :func:`tree_from_numpy`: every tensor leaf as a numpy
+    array on the host in its own dtype, except bfloat16, which numpy lacks
+    and which widens to float32 exactly."""
+    from repro_torch.device import tensor_to_numpy
+
+    return map_tree(tensor_to_numpy, tree)

@@ -21,6 +21,16 @@ over them.  Caches are a list with one entry per layer in the same order:
 RWKV.  The steps write the attention caches and the recurrent states in
 place; prefill *replaces* ``cross_k``/``cross_v`` with the encoder's K/V,
 whose length is the frames', as the reference does.
+
+Training reads the stacked tree itself, not a :class:`DecoderLM`: its
+leaves are the trainable tensors, leaf for leaf the reference's (the global
+norm, the per-leaf compression scales and the checkpoints all walk that
+layout).  :func:`model_view` gives the forward the same attribute surface
+over it, each layer's leaves slices of the stacked tensors (``unbind``), so
+autograd sums every layer's gradient into its slice of one stacked
+gradient.  With ``cfg.remat`` each block of a training forward runs under
+``torch.utils.checkpoint`` (non-reentrant): its activations are recomputed
+in the backward, as ``jax.checkpoint`` recomputes the reference's scan body.
 """
 
 from __future__ import annotations
@@ -30,10 +40,11 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, mamba, moe, rwkv6
 from repro_torch.models.layers import layernorm, rmsnorm
-from repro_torch.models.param import ParamDef, constrain, stack_defs
+from repro_torch.models.param import ParamDef, constrain, map_tree, map_trees, stack_defs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,7 +94,7 @@ class ArchConfig:
     norm: str = "rmsnorm"           # rmsnorm | layernorm
     act: str = "swiglu"             # swiglu | gelu
     scale_embed: bool = False       # gemma-style sqrt(d) embedding scale
-    remat: bool = True              # training only: no meaning when serving
+    remat: bool = True              # training: recompute each block in the backward
     dtype: Any = torch.bfloat16
     # lowering/compile shape knobs of the JAX package (kept so configs compare
     # field by field; serving here reads attn_block and rwkv_chunk)
@@ -245,6 +256,43 @@ def _index(tree: dict, p: int) -> dict:
     return {k: _index(v, p) if isinstance(v, dict) else v[p] for k, v in tree.items()}
 
 
+class TreeView:
+    """A nested dict of tensors read by attribute (``p.attn.wq``), as the
+    blocks of :class:`DecoderLM` are read, holding the tensors themselves:
+    a ``Parameter`` made from a slice would be a new leaf, and no gradient
+    would reach the stacked tensor.  ``spec``: a layer's :class:`LayerSpec`."""
+
+    def __init__(self, tree: dict, spec: LayerSpec | None = None):
+        for k, v in tree.items():
+            setattr(self, k, TreeView(v) if isinstance(v, dict) else v)
+        if spec is not None:
+            self.spec = spec
+
+
+def _unstack(stacked: dict, period: tuple[LayerSpec, ...], n: int) -> list[TreeView]:
+    """One view per layer, in layer order (position ``i`` of period ``p`` is
+    layer ``p * len(period) + i``), each leaf a slice of its stacked tensor."""
+    views = []
+    slices = [map_tree(lambda t: t.unbind(0), stacked[f"pos{i}"]) for i in range(len(period))]
+    for p in range(n):
+        for i, spec in enumerate(period):
+            views.append(TreeView(map_trees(lambda _, u: u[p], stacked[f"pos{i}"], slices[i]),
+                                  spec))
+    return views
+
+
+def model_view(cfg: ArchConfig, tree: dict) -> TreeView:
+    """The model of a stacked parameter tree (``build_model_defs``'s layout):
+    the attribute surface of :class:`DecoderLM` (``embed``, ``final_norm``,
+    ``lm_head``, ``layers``, ``enc_layers``, ``enc_norm``) over the tree's
+    own tensors, so a forward through it is differentiable in them."""
+    view = TreeView({k: v for k, v in tree.items() if k not in ("layers", "enc_layers")})
+    view.layers = _unstack(tree["layers"], cfg.period, cfg.n_periods)
+    if cfg.enc_dec:
+        view.enc_layers = _unstack(tree["enc_layers"], (ENC_SPEC,), cfg.n_enc_layers)
+    return view
+
+
 # ---------------------------------------------------------------------------
 # Caches
 # ---------------------------------------------------------------------------
@@ -363,9 +411,24 @@ def apply_layer(cfg: ArchConfig, spec: LayerSpec, p: Block, x: torch.Tensor, *,
     return x + o, new_cache, aux
 
 
-def stack_apply(cfg: ArchConfig, layers: nn.ModuleList, x: torch.Tensor, *, mode: str,
+def _train_block(cfg: ArchConfig, blk, x: torch.Tensor, positions, enc_out, prefix_len: int):
+    x, _, aux = apply_layer(cfg, blk.spec, blk, x, mode="train", cache=None,
+                            positions=positions, enc_out=enc_out, prefix_len=prefix_len)
+    return x, aux
+
+
+def stack_apply(cfg: ArchConfig, layers, x: torch.Tensor, *, mode: str,
                 caches: list | None, positions, enc_out=None, prefix_len: int = 0):
-    """Every block in layer order. Returns (x, new_caches, aux)."""
+    """Every block in layer order. Returns (x, new_caches, aux).  A training
+    forward that records gradients runs each block under a non-reentrant
+    ``checkpoint`` when ``cfg.remat`` is set."""
+    if cfg.remat and mode == "train" and torch.is_grad_enabled():
+        aux = 0.0
+        for blk in layers:
+            x, a = checkpoint(_train_block, cfg, blk, x, positions, enc_out, prefix_len,
+                              use_reentrant=False)
+            aux = aux + a
+        return x, None, aux
     new_caches = [] if caches is not None else None
     aux = 0.0
     for n, blk in enumerate(layers):
@@ -378,22 +441,24 @@ def stack_apply(cfg: ArchConfig, layers: nn.ModuleList, x: torch.Tensor, *, mode
     return x, new_caches, aux
 
 
-def apply_head(cfg: ArchConfig, params: DecoderLM, x: torch.Tensor) -> torch.Tensor:
-    """Final-norm'd hidden -> logits (tied or untied head)."""
+def apply_head(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
+    """Final-norm'd hidden -> logits (tied or untied head); ``params``: a
+    :class:`DecoderLM` or a :func:`model_view`."""
     head = getattr(params, "lm_head", None)
     if head is None:
         return torch.einsum("btd,vd->btv", x, params.embed)
     return torch.einsum("btd,dv->btv", x, head)
 
 
-def forward(cfg: ArchConfig, params: DecoderLM, batch: dict, *, mode: str,
+def forward(cfg: ArchConfig, params, batch: dict, *, mode: str,
             caches: list | None = None, return_logits: bool = True):
     """Unified forward. Returns (logits_or_hidden, new_caches, aux).
 
-    batch keys: tokens (B,T) for train/prefill; token (B,1) for decode;
-    + patch_embeds (B,P,d) for vlm; + frames (B,S_enc,d) for the
-    encoder-decoder.  ``return_logits=False`` returns the final-norm'd
-    hidden states.
+    ``params``: a :class:`DecoderLM` (serving) or the :func:`model_view` of
+    a stacked tree (training).  batch keys: tokens (B,T) for train/prefill;
+    token (B,1) for decode; + patch_embeds (B,P,d) for vlm; + frames
+    (B,S_enc,d) for the encoder-decoder.  ``return_logits=False`` returns
+    the final-norm'd hidden states.
     """
     embed = params.embed
 

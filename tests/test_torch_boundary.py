@@ -16,7 +16,8 @@ from _torch_port import REPO, run_python  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 #: the port's examples, beside the JAX package's
-EXAMPLES = ("serve_lm_torch.py", "quickstart_torch.py", "cfd_cavity_torch.py")
+EXAMPLES = ("serve_lm_torch.py", "quickstart_torch.py", "cfd_cavity_torch.py",
+            "train_lm_torch.py")
 
 
 def _port_files():
@@ -61,6 +62,9 @@ def test_scan_covers_the_package():
         f"src/repro_torch/configs/{a}.py" for a in (
             "rwkv6_7b", "jamba_v0_1_52b", "whisper_large_v3", "paligemma_3b",
             "grok_1_314b")} <= names
+    assert {"src/repro_torch/data/pipeline.py", "src/repro_torch/optim/adamw.py",
+            "src/repro_torch/optim/compress.py", "src/repro_torch/launch/train.py",
+            "examples/train_lm_torch.py"} <= names
 
 
 def test_entry_point_loads_neither_package():
@@ -71,6 +75,7 @@ def test_entry_point_loads_neither_package():
         import repro_torch.launch.cfd, repro_torch.core.simple_cfd
         import repro_torch.configs.cfd_scenarios, repro_torch.checkpoint, repro_torch.runtime
         import repro_torch.models.model, repro_torch.configs.stencil_box27
+        import repro_torch.launch.train, repro_torch.data, repro_torch.optim
         from repro_torch.configs import all_configs
         all_configs()
         print(json.dumps(sorted(m for m in sys.modules

@@ -1,0 +1,12 @@
+"""Training parity with the JAX package for the routed MoE models (Qwen1.5-MoE,
+Grok-1), at smoke width in f32: ``loss_fn``'s value and every gradient leaf,
+and one whole ``train_step`` (its loss, metrics, moments and parameters),
+with the tolerances of ``tests/_torch_train.py``."""
+
+import pytest
+
+pytest.importorskip("torch")
+
+from _torch_train import step_test  # noqa: E402
+
+test_loss_grads_and_train_step_match_jax = step_test(["qwen2_moe_a2_7b", "grok_1_314b"])
