@@ -280,6 +280,25 @@ Phases (one line of output each, JSON where it carries numbers):
    a fault half way): the loss falls by more than 0.5 and one restart
    happens.  (e) No K1-K6 launch across the phase.
 
+14. training across ranks and the dry-run, which reach no kernel.  (a)
+   Four gloo ranks on this card (``torchrun``, as phase 12) train
+   Qwen2-1.5B at full width, depth cut to 4, as a 2x2 mesh
+   (``runtime/sharded.py``: parameters split by ``physical_spec``, the
+   AdamW moments by ``zero1_spec``), global batch 2 x 4,096 (one sequence a
+   data rank), bf16, remat, 3 steps: every rank reports the same losses and
+   gathers the same parameters (digests), stores exactly
+   ``roofline_model``'s ``est_params_bytes``, and launches no K1-K6; rank 0
+   then runs the one-rank step of the same global batch on the card: the
+   losses within one bf16 ulp (2^-8) and the parameters after each step
+   within 2 sum(lr) + 4 bf16 ulps of |p| (the flip bound of
+   ``tests/_torch_train.py``, in the parameters' own dtype); each rank's
+   peak memory, moment bytes, warm step ms, bytes staged through the host
+   a step and collectives a step are printed.  (b) The dry-run's record of
+   13b's step (2 x 4,096, full depth, a 1x1 rank mesh): its FLOPs (equal to
+   ``train_bounds`` less the MLP down projections that remat does not
+   recompute), bytes, roofline terms and footprint beside 13b's measured
+   warm step and peak memory.
+
 ``--profile`` adds a torch.profiler trace of a few iterations of each
 measured path (phases 4, 5, 7 and 8b) and of 5 decode steps of 11c:
 device time by kernel and the card's idle share.
@@ -3226,9 +3245,9 @@ def p12_world_of_one(torch, device) -> dict:
 
 
 def rank_main(part: str, out_dir: Path) -> int:
-    """One rank of a phase-12 launch (``torchrun ... chip_smoke.py --rank-part
-    PART --rank-out DIR``): joins the group, runs its part, writes
-    ``DIR/rank<r>.json``."""
+    """One rank of a phase-12 or phase-14 launch (``torchrun ... chip_smoke.py
+    --rank-part PART --rank-out DIR``): joins the group, runs its part,
+    writes ``DIR/rank<r>.json``."""
     import torch
 
     sys.path.insert(0, str(ROOT / "src"))
@@ -3236,8 +3255,10 @@ def rank_main(part: str, out_dir: Path) -> int:
 
     device = dist.init("nccl" if part == "world_of_one" else "gloo", device_type="cuda")
     rank = dist.rank()
-    rec = (p12_world_of_one(torch, device) if part == "world_of_one"
-           else p12_rank_part(torch, device, out_dir))
+    parts = {"world_of_one": lambda: p12_world_of_one(torch, device),
+             "ranks": lambda: p12_rank_part(torch, device, out_dir),
+             "train": lambda: p14_rank_part(torch, device)}
+    rec = parts[part]()
     rec.update(rank=rank, device=str(device), failures=failures)
     (out_dir / f"rank{rank}.json").write_text(json.dumps(rec, default=str))
     dist.shutdown()
@@ -3864,6 +3885,193 @@ def phase13(torch, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: training across ranks (ZeRO-1), and the dry-run beside the card
+# ---------------------------------------------------------------------------
+
+#: 14a: Qwen2-1.5B at full width, depth cut to P14_LAYERS, over four gloo
+#: ranks sharing the card as a 2x2 mesh: the global batch (one sequence a
+#: data rank, train_4k's 4,096 tokens) and the steps
+P14_LAYERS, P14_BATCH, P14_STEPS = 4, (2, 4096), 3
+P14_WORLD, P14_TIMEOUT = 4, 400
+#: 14a: the ranks' loss over the one-rank loss of the same global batch,
+#: within 1 +- P14_LOSS_REL (one bf16 ulp of the loss: both compute in bf16,
+#: the ranks' products on half the rows)
+P14_LOSS_REL = 2.0 ** -8
+
+
+def bf16_ulps(torch, x):
+    """The bf16 spacing at |x| (float64)."""
+    a = x.double().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def p14_tree_digest(torch, tree) -> list:
+    """Each leaf's float64 sum and sum of magnitudes: equal trees, equal
+    digests (one ulp anywhere moves them far more than the f64 rounding)."""
+    from repro_torch.models.param import tree_leaves
+
+    return [[float(torch.sum(t, dtype=torch.float64)),
+             float(torch.sum(t.abs(), dtype=torch.float64))] for _, t in tree_leaves(tree)]
+
+
+def p14_rank_part(torch, device) -> dict:
+    """14a on one of four gloo ranks: the sharded steps at full width, the
+    parameters gathered after each step (outside the step's clock), and on
+    rank 0 the one-rank run of the same global batch on the card."""
+    import statistics
+
+    from repro_torch.core import dist
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.mesh import make_mesh_for_devices
+    from repro_torch.launch.roofline_model import lm_cell_memory_estimate
+    from repro_torch.models import model as M
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.sharded import ShardedLayout
+
+    B, T = P14_BATCH
+    full_cfg, data = LT.build(TRAIN_ARCH, full=True, seq_len=T, global_batch=B)
+    cfg = dataclasses.replace(full_cfg, n_layers=P14_LAYERS)
+    mesh = make_mesh_for_devices()
+    layout = ShardedLayout(cfg, mesh, B)
+    torch.cuda.reset_peak_memory_stats(device)
+    full = M.init_train_params(cfg, torch.Generator(device).manual_seed(0), device)
+    params, opt = layout.local_state((full, adamw_init(full)))
+    del full
+    torch.cuda.empty_cache()
+    step_ms: list[float] = []
+    stepper = LT.make_stepper(cfg, device, total_steps=P14_STEPS, step_ms=step_ms,
+                              layout=layout)
+    staged = obs_metrics.counter("comm.host_staged_bytes")
+    before, moved, calls = launch_counts(), 0, {}
+    gathered, losses, lrs, digests = [], [], [], []
+    for s in range(P14_STEPS):
+        c0, k0 = staged.value, dict(layout.comm.collectives)
+        params, opt, m = stepper(params, opt, data.batch_at(s))
+        moved += staged.value - c0
+        for k, v in layout.comm.collectives.items():
+            calls[k] = calls.get(k, 0) + v - k0.get(k, 0)
+        losses.append(float(m["loss"]))
+        lrs.append(float(m["lr"]))
+        whole = layout.gather(params)
+        digests.append(p14_tree_digest(torch, whole))
+        if dist.rank() == 0:
+            gathered.append(whole)
+        del whole
+    after = launch_counts()
+    shape = M.ShapeSpec("train_4k_cut", T, B, "train")
+    rec = dict(coords=mesh.coords, step_ms=step_ms, warm_ms=statistics.median(step_ms[1:]),
+               losses=losses, lrs=lrs, digests=digests,
+               param_bytes=layout.stored_bytes(params),
+               moment_bytes=layout.stored_bytes((opt.mu, opt.nu)),
+               est_params_bytes=lm_cell_memory_estimate(cfg, shape, mesh)["est_params_bytes"],
+               host_staged_bytes_per_step=moved / P14_STEPS,
+               peak_memory_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+               collectives_per_step={k: v / P14_STEPS for k, v in calls.items()},
+               kernel_launches={k: after[k] - before[k] for k in after if after[k] != before[k]})
+    del params, opt
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if dist.rank() == 0:
+        p = M.init_train_params(cfg, torch.Generator(device).manual_seed(0), device)
+        o = adamw_init(p)
+        step = M.make_train_step(cfg, total_steps=P14_STEPS)
+        one = dict(losses=[], step_ms=[], worst_over_bound=[], entries_off=[])
+        for s in range(P14_STEPS):
+            t0 = time.perf_counter()
+            p, o, m = step(p, o, LT.to_device(cfg, data.batch_at(s), device))
+            one["losses"].append(float(m["loss"]))
+            one["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            lr_sum = sum(lrs[:s + 1])
+            worst, off = 0.0, 0
+            for (k, a), (_, b) in zip(tree_leaves(gathered[s]), tree_leaves(p)):
+                gap = (a.double() - b.double()).abs()
+                bound = 2 * lr_sum + 4 * bf16_ulps(torch, b)
+                worst = max(worst, float((gap / bound).max()))
+                off += int((gap > 0).sum())
+            one["worst_over_bound"].append(worst)
+            one["entries_off"].append(off)
+        rec["one_rank"] = one
+        del p, o, gathered
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return rec
+
+
+def phase14(torch, smi: str, full13: dict) -> dict:
+    """14a-14b (module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    out: dict = {}
+    recs, _ = launch_ranks("train", P14_WORLD, P14_TIMEOUT)
+    if len(recs) == P14_WORLD:
+        recs.sort(key=lambda r: r["rank"])
+        one = recs[0].get("one_rank", {})
+        rel = [abs(a / b - 1) for a, b in zip(recs[0]["losses"], one.get("losses", []))]
+        out["ranks"] = dict(
+            phase="train_ranks", card=smi, arch=TRAIN_ARCH, n_layers=P14_LAYERS,
+            cut=f"depth 28 -> {P14_LAYERS}", mesh="2x2 (data, model), four gloo ranks on one card",
+            batch=P14_BATCH[0], seq=P14_BATCH[1], steps=P14_STEPS, dtype="bfloat16", remat=True,
+            losses=recs[0]["losses"], one_rank_losses=one.get("losses"), loss_rel_gap=rel,
+            loss_rel_tol=P14_LOSS_REL, params_worst_over_bound=one.get("worst_over_bound"),
+            params_entries_off=one.get("entries_off"), one_rank_step_ms=one.get("step_ms"),
+            per_rank=[{k: r[k] for k in ("rank", "coords", "warm_ms", "step_ms", "peak_memory_gb",
+                                         "param_bytes", "est_params_bytes", "moment_bytes",
+                                         "host_staged_bytes_per_step", "collectives_per_step",
+                                         "kernel_launches")} for r in recs])
+        emit(out["ranks"])
+        check(all(r["losses"] == recs[0]["losses"] and r["lrs"] == recs[0]["lrs"]
+                  for r in recs), "14a: the ranks report different losses")
+        check(all(r["digests"] == recs[0]["digests"] for r in recs),
+              "14a: the ranks gather different parameters (replicas disagree)")
+        check(all(r["param_bytes"] == r["est_params_bytes"] for r in recs),
+              "14a: stored parameter bytes differ from roofline_model's est_params_bytes")
+        check(all(not r["kernel_launches"] for r in recs),
+              f"14a: the sharded step launched kernels: {[r['kernel_launches'] for r in recs]}")
+        check(len(rel) == P14_STEPS and all(math.isfinite(x) and x <= P14_LOSS_REL for x in rel),
+              f"14a: losses {recs[0]['losses']} against one rank's {one.get('losses')}")
+        check(len(one.get("worst_over_bound", [])) == P14_STEPS
+              and all(w <= 1.0 for w in one["worst_over_bound"]),
+              f"14a: parameters beyond 2 sum(lr) + 4 bf16 ulps: {one.get('worst_over_bound')}")
+    # 14b: the dry-run's one-rank record of 13b's step, beside 13b's measurement
+    B, T, _ = TRAIN_FULL
+    cfg = get_config(TRAIN_ARCH)
+    rec = D.lower_lm_cell(TRAIN_ARCH, "train_4k", False, cfg,
+                          mesh=RankMesh(("data", "model"), (1, 1)),
+                          shape=dataclasses.replace(M.SHAPES["train_4k"], global_batch=B))
+    whole = rec["whole_trace"]
+    bounds = train_bounds(cfg, B, T)
+    warm, peak = full13.get("warm_ms_per_step"), full13.get("peak_memory_gb")
+    out["dryrun"] = dict(
+        phase="dryrun_vs_card", card=smi, arch=TRAIN_ARCH, batch=B, seq=T, mesh="1x1",
+        probes_flops=rec["per_chip_flops"], whole_flops=whole["flops"],
+        train_bounds_flops=bounds["train_flops"], probes_bytes=rec["per_chip_bytes"],
+        whole_bytes=whole["bytes"], t_compute_ms=rec["t_compute_s"] * 1e3,
+        t_memory_ms=rec["t_memory_s"] * 1e3, t_bound_ms=rec["t_bound_s"] * 1e3,
+        dominant=rec["dominant"], whole_t_compute_ms=whole["flops"] / D.PEAK_FLOPS * 1e3,
+        whole_t_memory_ms=whole["bytes"] / D.HBM_BW * 1e3,
+        est_footprint_gb=rec["est_footprint_bytes"] / 1e9,
+        meta_peak_live_gb=whole["peak_live_bytes"] / 1e9, trace_s=whole["trace_s"],
+        measured_warm_ms=warm, measured_peak_gb=peak,
+        warm_over_t_bound=warm / (rec["t_bound_s"] * 1e3) if warm else None,
+        peak_over_meta_peak=peak / (whole["peak_live_bytes"] / 1e9) if peak else None)
+    emit(out["dryrun"])
+    down = 2 * cfg.d_model * cfg.d_ff * B * T * cfg.n_layers
+    check(rec["status"] == "ok" and whole["flops"] == bounds["train_flops"] - down,
+          f"14b: the dry-run's FLOPs {whole['flops']} against train_bounds' "
+          f"{bounds['train_flops']} less the down projections' recompute {down}")
+    out["seconds"] = time.perf_counter() - t0
+    emit(dict(phase="train_ranks_clock", card=smi, seconds=out["seconds"]))
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3875,8 +4083,8 @@ def main(argv=None) -> int:
                          "torch.profiler")
     ap.add_argument("--out", type=Path, default=Path("build/chip_smoke.json"),
                     help="where the full JSON record goes (relative to the checkout)")
-    ap.add_argument("--rank-part", choices=["ranks", "world_of_one"],
-                    help=argparse.SUPPRESS)      # phase 12's torchrun ranks
+    ap.add_argument("--rank-part", choices=["ranks", "world_of_one", "train"],
+                    help=argparse.SUPPRESS)      # phase 12's and 14's torchrun ranks
     ap.add_argument("--rank-out", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -4049,6 +4257,9 @@ def main(argv=None) -> int:
 
     # -- phase 13: LM training ---------------------------------------------------
     record["train"] = phase13(torch, smi)
+
+    # -- phase 14: training across four ranks, and the dry-run beside the card --
+    record["train_ranks"] = phase14(torch, smi, record["train"].get("full", {}))
 
     # -- the kernels line ------------------------------------------------------
     path_counts = {"paper_mesh": counts, "batched": counts5, "ref_fused": counts7}

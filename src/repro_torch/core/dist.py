@@ -15,6 +15,11 @@ Every rank runs the same program on its own block.  This module gives it:
   waited on later, counted as 2 in ``comm.ppermute`` on every rank as the
   JAX package counts its collective permutes.  Edge ranks get zeros, the
   Dirichlet boundary;
+* :class:`MeshComm`: all-gather, all-reduce (sum) and reduce-scatter over
+  one or more axes of a ``RankMesh``, among the ranks that share the other
+  coordinates (the sharded train step's collectives), and its recording
+  mode, which logs each call as ``(op, bytes, group size)`` and returns a
+  tensor of the right shape with no process group (the dry-run);
 * uncounted helpers that move whole blocks (:func:`all_gather`,
   :func:`scatter_from_root`, :func:`broadcast_from_root`, :func:`barrier`),
   used where global arrays enter or leave a run (a checkpoint restore
@@ -314,3 +319,156 @@ def broadcast_from_root(t: torch.Tensor) -> torch.Tensor:
 def barrier() -> None:
     if world_size() > 1:
         _td().barrier()
+
+
+# ---------------------------------------------------------------------------
+# Collectives over the axes of a rank mesh
+# ---------------------------------------------------------------------------
+
+class MeshComm:
+    """Collectives among the ranks of a ``RankMesh`` that share every
+    coordinate but those of the named axes.
+
+    ``axes`` is a tuple of axis names, major first: a gathered or scattered
+    dimension is split over the group in row-major order of those axes'
+    coordinates, as a spec entry ``("pod", "data")`` splits it.  The groups
+    are built once, in the constructor, on every rank in the same order (as
+    ``torch.distributed.new_group`` requires): one for each set of axes
+    and each setting of the other coordinates.  A group of one rank moves
+    nothing.  Card tensors under gloo are staged through the host and
+    counted in ``comm.host_staged_bytes``, as the solver's collectives are;
+    ``collectives`` counts the calls that moved data, by op.
+
+    With ``record`` (a list) no process group is used: each call with a
+    group of more than one rank appends ``{"op", "bytes", "group",
+    "link_bytes"}`` and returns a tensor of the result's shape (on the
+    input's device, the ``meta`` device in the dry-run).  ``bytes`` is the
+    result's size, as the reference's HLO parse counts an op's output;
+    ``link_bytes`` what a ring moves out of each rank: ``(g - 1) / g`` of the
+    full tensor for an all-gather or a reduce-scatter, twice that for an
+    all-reduce.
+    """
+
+    def __init__(self, mesh, *, record: list | None = None):
+        self.mesh = mesh
+        self.record = record
+        self.collectives: dict[str, int] = {}
+        self._groups: dict[frozenset, object] = {}
+        if record is None and mesh.size > 1:
+            check_fabric(mesh.size)
+            self._build_groups()
+
+    def _members(self, axes) -> list[int]:
+        """The ranks of this rank's group over ``axes``, in rank order."""
+        from repro_torch.launch.mesh import RankMesh
+
+        mine = self.mesh.coords
+        return [r for r in range(self.mesh.size)
+                if all(RankMesh(self.mesh.axis_names, self.mesh.extents, r).coords[a] == mine[a]
+                       for a in self.mesh.axis_names if a not in axes)]
+
+    def _build_groups(self) -> None:
+        import itertools
+
+        from repro_torch.launch.mesh import RankMesh
+
+        names = self.mesh.axis_names
+        for k in range(1, len(names) + 1):
+            for sub in itertools.combinations(names, k):
+                others = [a for a in names if a not in sub]
+                seen: dict[tuple, list[int]] = {}
+                for r in range(self.mesh.size):
+                    c = RankMesh(names, self.mesh.extents, r).coords
+                    seen.setdefault(tuple(c[a] for a in others), []).append(r)
+                for key in sorted(seen):
+                    g = _td().new_group(seen[key])
+                    if rank() in seen[key]:
+                        self._groups[frozenset(sub)] = g
+
+    def group_size(self, axes) -> int:
+        sizes = self.mesh.shape
+        n = 1
+        for a in axes:
+            n *= sizes[a]
+        return n
+
+    def _order(self, axes) -> list[int]:
+        """Group-rank positions (rank order) sorted into the row-major order
+        of ``axes``' coordinates."""
+        from repro_torch.launch.mesh import RankMesh
+
+        members = self._members(axes)
+        key = lambda r: tuple(RankMesh(self.mesh.axis_names, self.mesh.extents, r).coords[a]
+                              for a in axes)
+        return sorted(range(len(members)), key=lambda i: key(members[i]))
+
+    def _log(self, op: str, axes, out_bytes: int, g: int, link_bytes: float) -> None:
+        self.collectives[op] = self.collectives.get(op, 0) + 1
+        obs_metrics.counter(f"comm.{op.replace('-', '_')}").inc()
+        if self.record is not None:
+            self.record.append(dict(op=op, axes=list(axes), bytes=out_bytes, group=g,
+                                    link_bytes=link_bytes))
+
+    def all_gather(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """Every group member's ``t``, concatenated along ``dim`` in the
+        row-major order of ``axes``."""
+        g = self.group_size(axes)
+        if g == 1:
+            return t
+        shape = list(t.shape)
+        shape[dim] *= g
+        nbytes = t.numel() * t.element_size() * g
+        self._log("all-gather", axes, nbytes, g, nbytes * (g - 1) / g)
+        if self.record is not None:
+            return torch.empty(shape, dtype=t.dtype, device=t.device)
+        staged = _staged(t)
+        wire = t.contiguous()
+        wire = (wire.cpu() if staged else wire).reshape(-1).view(torch.uint8)
+        outs = [torch.empty_like(wire) for _ in range(g)]
+        _td().all_gather(outs, wire, group=self._groups[frozenset(axes)])
+        if staged:
+            _count_staged(wire.numel() * (1 + g))
+        parts = [outs[i].view(t.dtype).reshape(t.shape) for i in self._order(axes)]
+        out = torch.cat(parts, dim=dim)
+        return out.to(t.device) if staged else out
+
+    def all_reduce_sum(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """The sum of every group member's ``x`` (a new tensor)."""
+        g = self.group_size(axes)
+        if g == 1:
+            return x
+        nbytes = x.numel() * x.element_size()
+        self._log("all-reduce", axes, nbytes, g, 2 * nbytes * (g - 1) / g)
+        if self.record is not None:
+            return torch.empty_like(x)
+        staged = _staged(x)
+        buf = x.detach().cpu() if staged else x.detach().clone()
+        if staged:
+            _count_staged(2 * nbytes)
+        _td().all_reduce(buf, op=_td().ReduceOp.SUM, group=self._groups[frozenset(axes)])
+        return buf.to(x.device) if staged else buf
+
+    def reduce_scatter(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """This rank's part, along ``dim`` in the row-major order of
+        ``axes``, of the sum of every group member's ``x``."""
+        g = self.group_size(axes)
+        if g == 1:
+            return x
+        assert x.shape[dim] % g == 0, (tuple(x.shape), dim, g)
+        nbytes = x.numel() * x.element_size()
+        self._log("reduce-scatter", axes, nbytes // g, g, nbytes * (g - 1) / g)
+        shape = list(x.shape)
+        shape[dim] //= g
+        if self.record is not None:
+            return torch.empty(shape, dtype=x.dtype, device=x.device)
+        staged = _staged(x)
+        src = x.detach().cpu() if staged else x.detach()
+        if staged:
+            _count_staged(nbytes + nbytes // g)
+        pieces = list(src.chunk(g, dim=dim))
+        order = self._order(axes)           # position i of the group takes piece order.index(i)
+        inputs = [pieces[order.index(i)].contiguous() for i in range(g)]
+        out = torch.empty(shape, dtype=x.dtype, device=src.device)
+        _td().reduce_scatter(out, inputs, op=_td().ReduceOp.SUM,
+                             group=self._groups[frozenset(axes)])
+        return out.to(x.device) if staged else out

@@ -49,6 +49,17 @@ def _world() -> tuple[int, int]:
     return dist.world_size(), dist.rank()
 
 
+def make_production_mesh(*, multi_pod: bool = False) -> RankMesh:
+    """The reference's target mesh as a rank layout: 16 x 16 = 256 ranks
+    over ``("data", "model")``, or 2 x 16 x 16 = 512 over ``("pod", "data",
+    "model")``.  On H100s, 256 ranks are 32 nodes of 8 cards (a ``model``
+    row of 16 spans two nodes).  It holds rank 0's view; the dry-run reads
+    per-rank specs from it, and nothing runs on it."""
+    if multi_pod:
+        return RankMesh(("pod", "data", "model"), (2, 16, 16))
+    return RankMesh(("data", "model"), (16, 16))
+
+
 def make_mesh_for_devices(n_devices: int | None = None, *, pods: int = 1) -> RankMesh:
     """Largest near-square 2D (or 3D with pods) grid for ``n_devices`` ranks.
 

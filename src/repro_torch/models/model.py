@@ -14,8 +14,16 @@ takes the stacked parameter tree (``init_train_params``, or the JAX
 package's tree through ``param.tree_from_numpy``) and an
 ``optim.AdamWState``.  The gradients are autograd's, as the reference's are
 ``jax.value_and_grad``'s; the step returns new trees and leaves its inputs
-as they were.  The abstract/sharding helpers of the dry-run are not ported
-(ROADMAP §1, item 3.5).
+as they were.  The same step across the ranks of a mesh, with the
+parameters and the ZeRO-1 moments split by the specs here, is
+``runtime/sharded.py``.
+
+Abstract stand-ins (for the dry-run, ``launch/dryrun.py``): ``input_specs``,
+``abstract_params``, ``abstract_caches`` and ``abstract_opt_state`` give
+meta tensors of the reference's shapes and dtypes, each carrying its
+``param.Spec`` on a ``RankMesh`` as ``.spec``; ``param_shardings`` and
+``out_shardings_for_train`` give the Spec trees; ``probe_config`` the
+1- and 2-period cost probes.
 
 Matrix-product settings on the card, set by the steps: TF32 off
 (``torch.backends.cuda.matmul.allow_tf32 = False``), so float32 products
@@ -36,7 +44,10 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, transformer
 from repro_torch.models.layers import cross_entropy_loss
-from repro_torch.models.param import ParamDef, count_params, init_tree, map_tree, tree_leaves
+from repro_torch.models.param import (
+    ParamDef, Spec, abstract_tree, batch_split, count_params, init_tree, map_tree, physical_spec,
+    sharding_tree, tree_leaves, zero1_sharding_tree, zero1_spec,
+)
 from repro_torch.models.transformer import ArchConfig, DecoderLM
 from repro_torch.optim.adamw import AdamWState, adamw_update, cosine_lr
 
@@ -76,6 +87,57 @@ def cell_is_supported(cfg: ArchConfig, shape: ShapeSpec) -> tuple[bool, str]:
             f"{cfg.name} ({cfg.family}) is full-attention (skip per spec, DESIGN.md §6)"
         )
     return True, ""
+
+
+# ---------------------------------------------------------------------------
+# Abstract inputs (meta tensors carrying their specs)
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype, spec: Spec | None) -> torch.Tensor:
+    t = torch.empty(shape, dtype=dtype, device="meta")
+    if spec is not None:
+        t.spec = spec
+    return t
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec, mesh=None) -> dict:
+    """Meta stand-ins for every model input of this cell (the reference's
+    shapes and dtypes: token ids int32)."""
+    B, T = shape.global_batch, shape.seq_len
+
+    def sds(shp, dtype, axes):
+        return _meta(shp, dtype, physical_spec(shp, axes, mesh) if mesh is not None else None)
+
+    batch: dict = {}
+    if shape.kind in ("train", "prefill"):
+        t_text = T - (cfg.n_frontend_tokens if cfg.frontend == "vlm" else 0)
+        batch["tokens"] = sds((B, t_text), torch.int32, ("batch", "seq"))
+        if shape.kind == "train":
+            batch["labels"] = sds((B, t_text), torch.int32, ("batch", "seq"))
+            batch["loss_mask"] = sds((B, t_text), torch.float32, ("batch", "seq"))
+        if cfg.frontend == "vlm":
+            batch["patch_embeds"] = sds((B, cfg.n_frontend_tokens, cfg.d_model),
+                                        cfg.dtype, ("batch", "seq", "d_model"))
+        if cfg.enc_dec:
+            enc_len = T if shape.kind == "train" else min(T, 4 * cfg.enc_len_decode)
+            batch["frames"] = sds((B, enc_len, cfg.d_model), cfg.dtype,
+                                  ("batch", "seq", "d_model"))
+    else:  # decode
+        batch["token"] = sds((B, 1), torch.int32, ("batch", None))
+    return batch
+
+
+def abstract_params(cfg: ArchConfig, mesh=None) -> dict:
+    return abstract_tree(transformer.build_model_defs(cfg), mesh)
+
+
+def abstract_caches(cfg: ArchConfig, shape: ShapeSpec, mesh=None) -> dict:
+    return abstract_tree(transformer.build_cache_defs(cfg, shape.global_batch,
+                                                      shape.seq_len), mesh)
+
+
+def param_shardings(cfg: ArchConfig, mesh) -> dict:
+    return sharding_tree(transformer.build_model_defs(cfg), mesh)
 
 
 def n_params(cfg: ArchConfig) -> int:
@@ -155,7 +217,14 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *,
     at a time, a Python loop over ``loss_chunks`` (or the largest divisor of
     the text length below it).  Returns (total, (loss, aux)).  ``params``:
     the stacked tree; the VLM's patch positions are dropped from the hidden
-    states before the head."""
+    states before the head.
+
+    Under a ``param.BatchSplit`` (the sharded step) ``batch`` is one shard
+    of the global batch, and the loss and the MoE's auxiliary loss are this
+    shard's terms of the global ones: the numerator over this shard's
+    tokens, divided by the global mask count, so that their sums over the
+    shards (values and gradients) are the one-rank step's of the global
+    batch."""
     view = transformer.model_view(cfg, params)
     hidden, _, aux = transformer.forward(cfg, view, batch, mode="train", return_logits=False)
     if cfg.frontend == "vlm":
@@ -175,7 +244,11 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *,
         logits_c = transformer.apply_head(cfg, view, hidden[:, sl])
         num = num + cross_entropy_loss(logits_c, batch["labels"][:, sl], mask[:, sl]) \
             * torch.clamp(mask[:, sl].sum(), min=1.0)
-    loss = num / torch.clamp(mask.sum(), min=1.0)
+    den = mask.sum()
+    split = batch_split()
+    if split is not None:       # the global batch's token count; num stays this shard's
+        den = split.sum(den)
+    loss = num / torch.clamp(den, min=1.0)
     return loss + aux_weight * aux, (loss, aux)
 
 
@@ -206,6 +279,48 @@ def make_train_step(cfg: ArchConfig, *, lr_peak: float = 3e-4, total_steps: int 
         return params, opt_state, metrics
 
     return train_step
+
+
+def probe_config(cfg: ArchConfig, k_periods: int, seq_len: int | None = None) -> ArchConfig:
+    """Cost-probe twin: k periods, the reference's probe fields
+    (``unroll``, ``inner_unroll``, no remat, the flash block coarsened to
+    ``seq/4``).  The dry-run traces the 1- and 2-period twins, whose
+    difference is the exact per-period cost, and extrapolates to the full
+    depth."""
+    T = seq_len or (1 << 15)
+    return dataclasses.replace(
+        cfg,
+        name=f"{cfg.name}_probe{k_periods}",
+        n_layers=k_periods * len(cfg.period),
+        n_enc_layers=k_periods if cfg.enc_dec else 0,
+        unroll=True,
+        remat=False,
+        attn_block=max(1024, T // 4),
+        inner_unroll=True,
+    )
+
+
+def abstract_opt_state(cfg: ArchConfig, mesh=None) -> AdamWState:
+    """Optimizer moments: f32 meta tensors of the parameters' shapes,
+    carrying ZeRO-1 specs (the parameter's spec + the batch axes over the
+    largest free dimension); ``count`` an int32 scalar."""
+    def mk(d: ParamDef):
+        return _meta(d.shape, torch.float32,
+                     zero1_spec(d.shape, d.axes, mesh) if mesh is not None else None)
+
+    defs = transformer.build_model_defs(cfg)
+    return AdamWState(mu=map_tree(mk, defs), nu=map_tree(mk, defs),
+                      count=_meta((), torch.int32, None))
+
+
+def out_shardings_for_train(cfg: ArchConfig, mesh):
+    """(params, opt_state, metrics) specs: parameters keep their layout,
+    the moments ZeRO-1, ``count`` and the metrics replicated."""
+    defs = transformer.build_model_defs(cfg)
+    z1 = zero1_sharding_tree(defs, mesh)
+    opt = AdamWState(mu=z1, nu=map_tree(lambda s: s, z1), count=Spec())
+    metrics = {k: Spec() for k in ("loss", "aux_loss", "total_loss", "lr", "grad_step")}
+    return param_shardings(cfg, mesh), opt, metrics
 
 
 def make_prefill_step(cfg: ArchConfig, shape: ShapeSpec):

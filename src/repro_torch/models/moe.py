@@ -41,7 +41,7 @@ import math
 import torch
 
 from repro_torch.models.layers import F32, gelu, gelu_tanh, silu, swiglu
-from repro_torch.models.param import ParamDef, constrain
+from repro_torch.models.param import BatchSplit, ParamDef, batch_split, constrain
 
 
 def capacity(tokens_per_group: int, n_experts: int, top_k: int,
@@ -94,11 +94,38 @@ def route(router: torch.Tensor, xt: torch.Tensor, *, top_k: int,
 
 
 def aux_loss(probs: torch.Tensor, e_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
-    """Switch-style load-balancing loss: E * sum(mean prob * share of choices)."""
+    """Switch-style load-balancing loss: E * sum(mean prob * share of choices).
+
+    The choices are counted by a ``scatter_add`` of ones (integers, exact
+    in f32: the reference's ``bincount`` bits, and it runs on the ``meta``
+    device).  Under a ``BatchSplit`` the counts are the global batch's and
+    the mean probability is this shard's sum over the global token count,
+    so the shards' terms add up to the global loss and its gradient."""
     n_tok, k = probs.shape[0] * probs.shape[1], e_idx.shape[-1]
-    me = probs.mean(dim=(0, 1))
-    ce = torch.bincount(e_idx.reshape(-1), minlength=n_experts).to(F32) / (n_tok * k)
+    flat = e_idx.reshape(-1)
+    counts = torch.zeros(n_experts, dtype=F32, device=probs.device).scatter_add_(
+        0, flat, torch.ones(flat.shape, dtype=F32, device=probs.device))
+    split = batch_split()
+    if split is None:
+        me = probs.mean(dim=(0, 1))
+    else:
+        n_tok *= split.count
+        me = probs.sum(dim=(0, 1)) / n_tok
+        counts = split.sum(counts)
+    ce = counts / (n_tok * k)
     return n_experts * torch.sum(me * ce)
+
+
+def _group_offsets(e_idx: torch.Tensor, n_experts: int, split: BatchSplit, span: int):
+    """For one token group spread over ``span`` consecutive batch shards, of
+    which this shard holds one part (``e_idx``: (1, part, k)): per choice
+    rank and expert, the choices made in the group's earlier parts and in
+    the whole group, each (k, E) int64."""
+    k = e_idx.shape[-1]
+    oh = torch.nn.functional.one_hot(e_idx[0], n_experts)             # (part, k, E)
+    every = split.gather(oh.sum(dim=0))                                  # (shards, k, E)
+    base = split.index - split.index % span
+    return every[base:split.index].sum(dim=0), every[base:base + span].sum(dim=0)
 
 
 def _experts(p, buf: torch.Tensor) -> torch.Tensor:
@@ -109,12 +136,15 @@ def _experts(p, buf: torch.Tensor) -> torch.Tensor:
 
 
 def einsum_dispatch(p, xt: torch.Tensor, e_idx: torch.Tensor, w: torch.Tensor, cap: int,
-                    n_experts: int) -> torch.Tensor:
+                    n_experts: int, offsets=None) -> torch.Tensor:
     """GShard dispatch: per-choice-rank one-hot (g, E, cap) masks + einsums.
 
     Position-in-expert is an exclusive cumsum over the group per rank plus
     the counts of earlier ranks; positions at or beyond ``cap`` drop.
-    Returns the combined expert outputs (n, g, d) in ``xt``'s dtype."""
+    ``offsets`` (:func:`_group_offsets`): ``xt`` is one part of a group
+    spread over batch shards, and the group's earlier parts and whole-group
+    counts enter the positions.  Returns the combined expert outputs (n, g,
+    d) in ``xt``'s dtype."""
     n, g, d = xt.shape
     E, dt = n_experts, xt.dtype
     slots = torch.arange(cap, device=xt.device)
@@ -124,24 +154,29 @@ def einsum_dispatch(p, xt: torch.Tensor, e_idx: torch.Tensor, w: torch.Tensor, c
     for j in range(e_idx.shape[-1]):
         oh_j = torch.nn.functional.one_hot(e_idx[..., j], E)          # (n, g, E)
         pos_j = torch.cumsum(oh_j, dim=1) - oh_j + counts
+        if offsets is not None:
+            pos_j = pos_j + offsets[0][j]
         keep = (pos_j < cap) & (oh_j > 0)
         d_j = ((pos_j[..., None] == slots) & keep[..., None]).to(dt)  # (n, g, E, cap)
         disp = disp + d_j
         comb = comb + d_j * w[:, :, j, None, None].to(dt)
-        counts = counts + oh_j.sum(dim=1, keepdim=True)
+        counts = counts + (oh_j.sum(dim=1, keepdim=True) if offsets is None else offsets[1][j])
     buf = torch.einsum("ngd,ngec->necd", xt, disp)
     return torch.einsum("ngec,necd->ngd", comb, _experts(p, buf))
 
 
 def scatter_dispatch(p, xt: torch.Tensor, e_idx: torch.Tensor, w: torch.Tensor, cap: int,
-                     n_experts: int) -> torch.Tensor:
+                     n_experts: int, offsets=None) -> torch.Tensor:
     """Positional dispatch: each (token, choice) in token order takes the
-    next slot of its expert's buffer; combined outputs (n, g, d)."""
+    next slot of its expert's buffer (after the choices of the group's
+    earlier parts, with ``offsets``); combined outputs (n, g, d)."""
     n, g, d = xt.shape
     k = e_idx.shape[-1]
     flat_e = e_idx.reshape(n, g * k)                                    # token-major
     oh = torch.nn.functional.one_hot(flat_e, n_experts)                 # (n, g*k, E)
     pos = ((torch.cumsum(oh, dim=1) - oh) * oh).sum(-1)                 # (n, g*k)
+    if offsets is not None:
+        pos = pos + (oh * offsets[0].sum(dim=0)).sum(-1)
     keep = pos < cap
     tok = torch.arange(g, device=xt.device).repeat_interleave(k)
     grp = torch.arange(n, device=xt.device)[:, None].expand(n, g * k)
@@ -168,12 +203,20 @@ def moe_apply(p, x: torch.Tensor, *, n_experts: int, top_k: int, group_size: int
     module (router, w_gate, w_up, w_down, optionally the shared expert)."""
     B, T, d = x.shape
     n_tok = B * T
-    g = tokens_per_group(n_tok, group_size)
+    split = batch_split()
+    # the group (and so the capacity) follows the global batch's token count
+    g = tokens_per_group(n_tok * (split.count if split else 1), group_size)
     cap = capacity(g, n_experts, top_k, cap_factor)
+    span = 1
+    if g > n_tok and g % n_tok == 0:        # one group over `span` consecutive shards
+        span, g = g // n_tok, n_tok
+    elif n_tok % g:
+        raise ValueError(f"a token group of {g} straddles batch shards of {n_tok} tokens")
     xt = constrain(x.reshape(n_tok // g, g, d), ("moe_groups", None, "d_model"))
     probs, w, e_idx = route(p.router, xt, top_k=top_k,
                             router_weights_renorm=router_weights_renorm)
-    out = DISPATCHES[dispatch](p, xt, e_idx, w, cap, n_experts)
+    offsets = _group_offsets(e_idx, n_experts, split, span) if span > 1 else None
+    out = DISPATCHES[dispatch](p, xt, e_idx, w, cap, n_experts, offsets)
     return add_shared(p, x, out.reshape(B, T, d)), aux_loss(probs, e_idx, n_experts)
 
 

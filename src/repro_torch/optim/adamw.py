@@ -101,12 +101,14 @@ def _update_leaf(p, g, m, n, *, scale, lr, c1, c2, b1, b2, eps, weight_decay):
 @torch.no_grad()
 def adamw_update(params, grads, state: AdamWState, *, lr, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8, weight_decay: float = 0.1,
-                 clip_norm: float | None = 1.0):
-    """Returns (new params, new state); the inputs are left as they were."""
+                 clip_norm: float | None = 1.0, grad_norm: torch.Tensor | None = None):
+    """Returns (new params, new state); the inputs are left as they were.
+    ``grad_norm``: the global norm to clip by, when ``grads`` are blocks of
+    the full gradients (the sharded step); by default ``global_norm(grads)``."""
     count = state.count + 1
     scale = None
     if clip_norm is not None:
-        gn = global_norm(grads)
+        gn = global_norm(grads) if grad_norm is None else grad_norm
         scale = torch.clamp(div(clip_norm, torch.clamp(gn, min=1e-9)), max=1.0)
     cf = count.to(F32)
     c1 = 1 - b1 ** cf

@@ -28,6 +28,13 @@ step), and every rank runs the same loop:
   (:class:`StepFaultAcrossRanks`) instead of sending it into a restore.
 
 On one rank nothing of this runs.
+
+A state split over the ranks (``runtime/sharded.py``'s blocks) is handed a
+``layout``: a checkpoint then holds the full tree in the reference's
+layout, put together on every rank (``layout.full_state``, a collective)
+and written by rank 0, and a restore reads it into full-shape buffers
+(``layout.full_like``) and keeps this rank's blocks (``layout.local_state``).
+A sharded checkpoint so restores in a one-rank run and the other way round.
 """
 
 from __future__ import annotations
@@ -70,8 +77,9 @@ class RunnerConfig:
 class FaultTolerantRunner:
     def __init__(self, cfg: RunnerConfig, *, train_step: Callable,
                  data: StepStream, ckpt: CheckpointManager,
-                 failure_hook: Callable[[int], None] | None = None):
+                 failure_hook: Callable[[int], None] | None = None, layout=None):
         self.cfg = cfg
+        self.layout = layout
         self.train_step = train_step
         self.data = data
         self.ckpt = ckpt
@@ -113,12 +121,22 @@ class FaultTolerantRunner:
                     state = (p, o, step)
 
     def _save(self, step: int, tree, *, blocking: bool) -> None:
-        if dist.is_root():      # across ranks the state is everywhere the same
+        if self.layout is not None:
+            tree = self.layout.full_state(tree)
+        if dist.is_root():      # across ranks the (full) state is everywhere the same
             self.ckpt.save(step, tree, blocking=blocking)
 
     def _restore_latest(self, like):
         """The manager's ``restore_latest``; across ranks rank 0 reads, after
         its pending write, and every rank receives the step and the leaves."""
+        if self.layout is not None:
+            like = self.layout.full_like(like)
+        got = self._restore_full(like)
+        if got is None or self.layout is None:
+            return got
+        return self.layout.local_state(got[0]), got[1]
+
+    def _restore_full(self, like):
         if dist.world_size() == 1:
             return self.ckpt.restore_latest(like)
         root = dist.is_root()
