@@ -1562,9 +1562,10 @@ def phase8(torch, smi: str, phase4_ms: float) -> dict:
 
 #: 9a's sweeps: (label, block, right-hand sides)
 SWEEP_CELLS = (("cs1_paper", PAPER_MESH, 1), ("joule_600", JOULE_MESH, MAIN_NRHS))
-#: the spans 9b's trace.json must hold
-OBS_SPANS = {"solve.krylov", "operator.build", "comm.halo.issue", "comm.halo.interior",
-             "comm.halo.ring"}
+#: the spans 9b's trace.json must hold (one rank: no comm.halo.issue nor .ring)
+OBS_SPANS = {"solve.krylov", "solve", "solve.cast_fields", "operator.build", "tuning.lookup",
+             "krylov.init", "krylov.iteration", "krylov.flag_wait", "comm.halo.interior",
+             "stencil.pad", "bicgstab.q_in"}
 STENCIL_KERNEL = "stencil_nd_kernel"
 
 

@@ -40,6 +40,7 @@ from repro_torch.core.solvers import get_solver
 from repro_torch.core.solvers.bicgstab import bicgstab_fused_step, bicgstab_step
 from repro_torch.core.solvers.common import EPS, SolveResult, axpy_family
 from repro_torch.core.stencil import StencilCoeffs, apply_ref
+from repro_torch.obs import trace as obs_trace
 
 
 def _check_rhs(coeffs: StencilCoeffs, b: torch.Tensor) -> None:
@@ -93,12 +94,15 @@ def solve_block(mesh, coeffs: StencilCoeffs, b: torch.Tensor,
     fabric = FabricAxes.from_mesh(mesh)
     _refuse_reference(backend, fabric)
     _check_rhs(coeffs, b)
-    cf = coeffs.astype(policy.storage)
-    op = make_operator(backend, cf, fabric, policy=policy, schedule=sched,
-                       fused_reductions=fused_reductions)
-    M = build_precond(get_precond_config(precond), op)
-    return get_solver(solver)(op, b, x0, tol=tol, maxiter=maxiter, policy=policy,
-                              record_history=record_history, precond=M)
+    with obs_trace.span("solve", solver=solver, backend=backend, shape=tuple(coeffs.shape),
+                        nrhs=b.shape[0] if b.ndim > coeffs.ndim else 1):
+        with obs_trace.span("solve.cast_fields"):
+            cf = coeffs.astype(policy.storage)
+        op = make_operator(backend, cf, fabric, policy=policy, schedule=sched,
+                           fused_reductions=fused_reductions)
+        M = build_precond(get_precond_config(precond), op)
+        return get_solver(solver)(op, b, x0, tol=tol, maxiter=maxiter, policy=policy,
+                                  record_history=record_history, precond=M)
 
 
 def solve_distributed(mesh, coeffs: StencilCoeffs, b: torch.Tensor,

@@ -20,6 +20,8 @@ Observability, at the JAX package's sites: spans ``comm.halo.issue``,
 ``.blocking``, ``.fused_epilogue``, ``.interior`` and ``.ring``, and the
 ``comm.halo_exchanges`` counter.  In eager PyTorch they fire on every SpMV
 (the JAX package's fire once per trace), and their time is the host's.
+``.issue`` and ``.ring`` open only where an axis is split: on the one-rank
+fabric they would wrap no work (nothing is posted, no ring is patched).
 """
 
 from __future__ import annotations
@@ -108,12 +110,13 @@ class HaloExchange:
 def start_halo_exchange(v: torch.Tensor, fabric: FabricAxes, radius: int, *,
                         corners: bool = False, n_batch: int = 0) -> HaloExchange:
     """Start the depth-r exchange (post its messages where an axis is split)
-    and return its handle."""
+    and return its handle.  With no split axis nothing is posted, and no
+    ``comm.halo.issue`` span is opened."""
     obs_metrics.counter("comm.halo_exchanges").inc()
+    if not is_split(fabric, v.ndim - n_batch):
+        return HaloExchange(v, fabric, radius, corners, n_batch)
     with obs_trace.span("comm.halo.issue", radius=radius, n_batch=n_batch):
-        post = None
-        if is_split(fabric, v.ndim - n_batch):
-            post = HaloPost(v, fabric, radius, corners=corners, n_batch=n_batch)
+        post = HaloPost(v, fabric, radius, corners=corners, n_batch=n_batch)
         return HaloExchange(v, fabric, radius, corners, n_batch, post=post)
 
 
@@ -186,8 +189,14 @@ def scheduled_apply(coeffs: StencilCoeffs, v: torch.Tensor, fabric: FabricAxes, 
             return fused_fn(exchange)
     with obs_trace.span("comm.halo.interior", stencil=spec.name):
         u = interior_apply(coeffs, v, policy=policy) if interior_fn is None else interior_fn(v)
-    with obs_trace.span("comm.halo.ring", stencil=spec.name):
+
+    def patch(u):
         if patch_fn is not None:
             return patch_fn(exchange, u)
         return boundary_ring_apply(coeffs, exchange, u, fabric,
                                    policy=policy).to(policy.storage)
+
+    if exchange.post is None:           # no split axis: no boundary region to patch
+        return patch(u)
+    with obs_trace.span("comm.halo.ring", stencil=spec.name):
+        return patch(u)

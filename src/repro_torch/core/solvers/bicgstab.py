@@ -30,6 +30,7 @@ from repro_torch.core.solvers.common import (
     SolveResult, axpy_family, bcast_scalar, convergence_test, finish,
     init_counters, run_krylov, safe_div,
 )
+from repro_torch.obs import trace as obs_trace
 
 
 def bicgstab_step(apply_A: Callable, dots: Callable, policy: Policy, axpy, axpy2,
@@ -66,7 +67,8 @@ def bicgstab_fused_step(op, policy: Policy, x, r, p, r0, rho):
     s = op.apply(p)
     (r0s,) = op.reduce_partials([f.dot_partial(r0, s)])     # sync point 1
     alpha, bad1 = safe_div(rho, r0s)
-    q_in = r - bcast_scalar(alpha.to(st), s) * s             # SpMV input, kernel-identical
+    with obs_trace.span("bicgstab.q_in"):
+        q_in = r - bcast_scalar(alpha.to(st), s) * s         # SpMV input, kernel-identical
     y = op.apply(q_in)
     del q_in
     q, qy, yy = f.update_q_dots(alpha, r, s, y)
@@ -122,25 +124,26 @@ def bicgstab_fused_loop(op, b, x0, *, tol: float = 1e-6, maxiter: int = 200,
         raise ValueError("operator has no fused kernels (use bicgstab_loop)")
     st = policy.storage
 
-    b = b.to(st)
-    if x0 is None:
-        x0 = torch.zeros_like(b)
-        r0 = b
-    else:
-        x0 = x0.to(st)
-        r0 = (b.to(policy.compute) - op.apply(x0).to(policy.compute)).to(st)
+    with obs_trace.span("krylov.init"):
+        b = b.to(st)
+        if x0 is None:
+            x0 = torch.zeros_like(b)
+            r0 = b
+        else:
+            x0 = x0.to(st)
+            r0 = (b.to(policy.compute) - op.apply(x0).to(policy.compute)).to(st)
 
-    bnorm2, rho0 = op.reduce_partials([f.dot_partial(b, b), f.dot_partial(r0, r0)])
-    converged = convergence_test(tol, bnorm2)
+        bnorm2, rho0 = op.reduce_partials([f.dot_partial(b, b), f.dot_partial(r0, r0)])
+        converged = convergence_test(tol, bnorm2)
+        conv0 = converged(rho0)
+        i0, brk0 = init_counters(conv0)
+        init = (i0, x0, r0, r0, rho0, rho0, conv0, brk0)
 
     def step(carry):
         i, x, r, p, rho, res2, conv, brk = carry
         x, r, p, rho, res2, brk = bicgstab_fused_step(op, policy, x, r, p, r0, rho)
         return i + 1, x, r, p, rho, res2, converged(res2), brk
 
-    conv0 = converged(rho0)
-    i0, brk0 = init_counters(conv0)
-    init = (i0, x0, r0, r0, rho0, rho0, conv0, brk0)
     final, hist = run_krylov(step, init, maxiter=maxiter, bnorm2=bnorm2,
                              record_history=record_history)
     return finish(final, bnorm2, history=hist)

@@ -21,6 +21,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.precision import Policy
+from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import record_solve
 
 
@@ -118,13 +119,31 @@ def _freeze_select(mask: torch.Tensor, new, old):
     return torch.where(m, new, old)
 
 
+def _stop_flags(carry, batched: bool):
+    """``(stop, active, all_active)`` from the carry's flags: the loop's one
+    wait on the card, in a ``krylov.flag_wait`` span.  ``active`` is the
+    device's ``[B]`` mask of a batched carry (None unbatched)."""
+    stopped = carry[-2] | carry[-1]
+    if not batched:
+        with obs_trace.span("krylov.flag_wait"):
+            return bool(stopped), None, True
+    active = ~stopped
+    with obs_trace.span("krylov.flag_wait"):
+        act = active.cpu()
+    return not bool(act.any()), active, bool(act.all())
+
+
 def run_krylov(step, init, *, maxiter: int, bnorm2: torch.Tensor, record_history: bool):
     """Drive a Krylov ``step`` to convergence on the host.
 
     ``step(carry) -> carry`` advances one iteration; the carry contract is
     ``(i, x, *state, res2, conv, brk)``, the last three on the device.  The
     loop stops at ``maxiter``, convergence or breakdown, reading ``conv |
-    brk`` once per iteration (its only sync).
+    brk`` once per iteration (its only sync): before the first step, then
+    after each step but the ``maxiter``-th.  Each iteration is a
+    ``krylov.iteration`` span that enqueues its step and then waits for its
+    flag (``krylov.flag_wait``); the first also holds the read before the
+    first step (and, in a solve that stops before it, nothing else).
 
     A batched carry (``[B]`` flags) runs while any RHS is active, reading
     the ``[B]`` active mask once per iteration.  An RHS that has stopped
@@ -143,23 +162,22 @@ def run_krylov(step, init, *, maxiter: int, bnorm2: torch.Tensor, record_history
     carry = init
     hist = []
     n = 0
-    while n < maxiter:
-        stopped = carry[-2] | carry[-1]
-        if not batched:
-            if bool(stopped):                        # the one sync per iteration
-                break
-            carry = step(carry)
-        else:
-            active = ~stopped
-            act = active.cpu()                       # the one sync per iteration
-            if not bool(act.any()):
-                break
+    stop = maxiter <= 0
+    while not stop:
+        with obs_trace.span("krylov.iteration"):
+            if n == 0:
+                stop, active, all_active = _stop_flags(carry, batched)
+                if stop:
+                    break
             new = step(carry)
-            carry = new if bool(act.all()) else tuple(
+            carry = new if all_active else tuple(
                 _freeze_select(active, a, b) for a, b in zip(new, carry))
-        n += 1
-        if record_history:
-            hist.append(rel(carry))
+            n += 1
+            if record_history:
+                hist.append(rel(carry))
+            stop = n >= maxiter
+            if not stop:
+                stop, active, all_active = _stop_flags(carry, batched)
     if not record_history:
         return carry, None
     hist += [rel(carry)] * (maxiter - len(hist))      # the frozen tail

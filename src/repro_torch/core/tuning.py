@@ -230,22 +230,23 @@ def lookup_config(spec: StencilSpec, dtype, shape: tuple[int, ...], *, device,
     """
     shape = tuple(int(s) for s in shape)
     mesh, nb = shape[-3:], math.prod(shape[:-3])
-    cache = cache if cache is not None else get_cache()
-    key = cache_key(device, spec, dtype, mesh)
-    if cache is not None:
-        tuned = cache.get(key)
-        if tuned is not None:
-            problem = config_error(tuned, spec, dtype, mesh)
-            if problem is None:
-                obs_metrics.counter("tuning.lookup.cache").inc()
-                return tuned, "cache"
-            warnings.warn(f"tuning-cache entry {key!r} is stale ({problem}); using the "
-                          f"default config; re-sweep with launch.solve --autotune",
-                          stacklevel=2)
-            obs_metrics.counter("tuning.lookup.stale").inc()
-            return default_config(spec, dtype, mesh, nb), "stale"
-    obs_metrics.counter("tuning.lookup.default").inc()
-    return default_config(spec, dtype, mesh, nb), "default"
+    with obs_trace.span("tuning.lookup"):
+        cache = cache if cache is not None else get_cache()
+        key = cache_key(device, spec, dtype, mesh)
+        if cache is not None:
+            tuned = cache.get(key)
+            if tuned is not None:
+                problem = config_error(tuned, spec, dtype, mesh)
+                if problem is None:
+                    obs_metrics.counter("tuning.lookup.cache").inc()
+                    return tuned, "cache"
+                warnings.warn(f"tuning-cache entry {key!r} is stale ({problem}); using the "
+                              f"default config; re-sweep with launch.solve --autotune",
+                              stacklevel=2)
+                obs_metrics.counter("tuning.lookup.stale").inc()
+                return default_config(spec, dtype, mesh, nb), "stale"
+        obs_metrics.counter("tuning.lookup.default").inc()
+        return default_config(spec, dtype, mesh, nb), "default"
 
 
 def cached_config(spec: StencilSpec, dtype, shape: tuple[int, ...], *,

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.stencil import StencilCoeffs, StencilSpec
 from repro_torch.kernels.stencil_nd.kernel import stencil_nd, stencil_nd_batched
+from repro_torch.obs import trace as obs_trace
 
 
 def _spec_order(coeffs: StencilCoeffs, spec: StencilSpec) -> list[torch.Tensor]:
@@ -53,6 +54,12 @@ def _kernel(nb: int):
     return stencil_nd_batched if nb else stencil_nd
 
 
+def _zero_pad(v: torch.Tensor, r: int) -> torch.Tensor:
+    """``v`` with a depth-``r`` zero halo on its three mesh axes."""
+    with obs_trace.span("stencil.pad"):
+        return F.pad(v, (r, r) * 3)
+
+
 def stencil_apply(coeffs: StencilCoeffs, v: torch.Tensor, *,
                   spec: StencilSpec | None = None,
                   accum_dtype: torch.dtype = torch.float32, config=None) -> torch.Tensor:
@@ -61,7 +68,7 @@ def stencil_apply(coeffs: StencilCoeffs, v: torch.Tensor, *,
     nb = _batch_rank(v, coeffs)
     spec = spec or coeffs.spec
     r = spec.radius
-    return _kernel(nb)(F.pad(v, (r, r) * 3), _spec_order(coeffs, spec), spec.offsets,
+    return _kernel(nb)(_zero_pad(v, r), _spec_order(coeffs, spec), spec.offsets,
                        radius=r, accum_dtype=accum_dtype, config=config)
 
 
@@ -133,6 +140,6 @@ def fused_local_apply(coeffs: StencilCoeffs, v: torch.Tensor, fabric, *, policy,
     return comm.scheduled_apply(
         cf, vs, fabric, policy=policy, schedule=schedule,
         full_fn=kernel,
-        interior_fn=lambda vv: kernel(F.pad(vv, (r, r) * 3)),
+        interior_fn=lambda vv: kernel(_zero_pad(vv, r)),
         patch_fn=patch_ring,
         fused_fn=fused_fn)

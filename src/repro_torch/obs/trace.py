@@ -14,8 +14,20 @@ Counterpart of ``repro/obs/trace.py``.  What changes under eager PyTorch:
           res = solve(...)
           sp.block(res.x)
 
-When tracing is off, :func:`span` returns one shared no-op object, so an
-instrumented loop pays a function call and a flag test per span.
+A span is *live* while the port's tracing is enabled (:func:`enable`, as
+``--obs`` does) or while ``torch.profiler`` records.  A live span records
+its host interval; while the profiler records it also opens a
+``record_function`` range of its name, so the span sits on the profiler's
+timeline, on one clock with the kernels launched inside it (``--profile``'s
+``torch_trace.json``, the benchmark's traced run).  When neither is on,
+:func:`span` returns one shared no-op object and opens no range, so an
+instrumented loop pays a function call and two flag tests per span.
+
+Each recorded span carries its ``id``, its parent's ``parent_id`` and
+``solve_id``, the id of the outermost ``solve`` span it runs in, so that
+every span of one solve shares it; :func:`self_us` gives a span's duration
+less what its children cover.  At most :data:`MAX_EVENTS` spans are kept;
+the counter ``trace.dropped`` counts the rest.
 
 ``chrome_trace()`` returns the completed spans as Chrome trace events
 (``ph: "X"``, microsecond timestamps; load ``trace.json`` at
@@ -26,13 +38,22 @@ https://ui.perfetto.dev).  ``profile(dir)`` runs a region under
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import threading
 import time
 
+from torch.autograd import profiler as _torch_profiler
+
+from repro_torch.obs import metrics as obs_metrics
+
+#: spans kept in memory; later ones are counted in ``trace.dropped``
+MAX_EVENTS = 100_000
+
 _ENABLED = False
 _SYNC = False
 _EVENTS: list[dict] = []
+_IDS = itertools.count(1)
 _LOCK = threading.Lock()
 _TLS = threading.local()
 # Process epoch: Chrome trace timestamps are relative microseconds.
@@ -54,6 +75,8 @@ def disable() -> None:
 
 
 def is_enabled() -> bool:
+    """Whether the port's own tracing is on (``enable``); a profiler that
+    records makes spans live without turning it on."""
     return _ENABLED
 
 
@@ -74,7 +97,7 @@ def _stack() -> list:
 class Span:
     """A single recorded span.  Use via :func:`span`, not directly."""
 
-    __slots__ = ("name", "attrs", "t0", "depth", "parent")
+    __slots__ = ("name", "attrs", "t0", "depth", "parent", "id", "solve_id", "_range")
 
     def __init__(self, name: str, attrs: dict):
         self.name = name
@@ -82,17 +105,29 @@ class Span:
         self.t0 = 0.0
         self.depth = 0
         self.parent = None
+        self.id = next(_IDS)
+        self.solve_id = None
+        self._range = None
 
     def __enter__(self) -> "Span":
         st = _stack()
-        self.parent = st[-1].name if st else None
+        self.parent = st[-1] if st else None
         self.depth = len(st)
+        self.solve_id = self.parent.solve_id if self.parent else None
+        if self.solve_id is None and self.name == "solve":
+            self.solve_id = self.id
         st.append(self)
+        if _torch_profiler._is_profiler_enabled:
+            self._range = _torch_profiler.record_function(self.name)
+            self._range.__enter__()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> None:
         t1 = time.perf_counter()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
         st = _stack()
         if st and st[-1] is self:
             st.pop()
@@ -101,13 +136,20 @@ class Span:
             "ts_us": (self.t0 - _EPOCH) * 1e6,
             "dur_us": (t1 - self.t0) * 1e6,
             "depth": self.depth,
-            "parent": self.parent,
+            "parent": self.parent.name if self.parent else None,
             "thread": threading.get_ident(),
+            "id": self.id,
+            "parent_id": self.parent.id if self.parent else None,
+            "solve_id": self.solve_id,
         }
         if self.attrs:
             ev["attrs"] = self.attrs
         with _LOCK:
-            _EVENTS.append(ev)
+            kept = len(_EVENTS) < MAX_EVENTS
+            if kept:
+                _EVENTS.append(ev)
+        if not kept:
+            obs_metrics.counter("trace.dropped").inc()
 
     def block(self, value):
         """Synchronise ``value``'s card iff sync timing is on and ``value``
@@ -148,8 +190,9 @@ _NULL = _NullSpan()
 
 
 def span(name: str, **attrs):
-    """Open a (nestable) span.  Returns the no-op singleton when disabled."""
-    if not _ENABLED:
+    """Open a (nestable) span.  Returns the no-op singleton unless tracing
+    is enabled or ``torch.profiler`` records."""
+    if not (_ENABLED or _torch_profiler._is_profiler_enabled):
         return _NULL
     return Span(name, attrs)
 
@@ -158,6 +201,17 @@ def events() -> list[dict]:
     """Completed spans, oldest first (a copy)."""
     with _LOCK:
         return list(_EVENTS)
+
+
+def self_us(events: list[dict], children: tuple[str, ...] | None = None) -> dict[int, float]:
+    """Each span's self time in microseconds, by ``id``: its duration less
+    what its children cover (only the children named in ``children``, when
+    given).  A span's children run one after another on its thread."""
+    out = {e["id"]: e["dur_us"] for e in events}
+    for e in events:
+        if e["parent_id"] in out and (children is None or e["name"] in children):
+            out[e["parent_id"]] -= e["dur_us"]
+    return out
 
 
 def chrome_trace() -> dict:

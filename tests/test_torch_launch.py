@@ -242,7 +242,9 @@ def test_cli_obs_changes_no_bits_and_records_the_spans(tmp_path, monkeypatch):
     assert torch.equal(xs[0], xs[1]) and plain["iterations"] == traced["iterations"]
     assert plain["collectives"] == traced["collectives"]
     names = {e["name"] for e in json.loads((run_dir / "trace.json").read_text())["traceEvents"]}
-    assert {"solve.krylov", "operator.build", "comm.halo.issue", "comm.halo.interior"} <= names
+    assert {"solve.krylov", "solve", "operator.build", "krylov.iteration", "krylov.flag_wait",
+            "comm.halo.interior", "stencil.pad"} <= names
+    assert not {"comm.halo.issue", "comm.halo.ring"} & names     # one rank: nothing to post
     from repro_torch.obs import trace
 
     assert not trace.is_enabled()           # a later solve in the process pays nothing

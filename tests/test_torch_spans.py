@@ -1,0 +1,193 @@
+"""The port's spans on the solve path: off, they are one shared no-op that
+opens no profiler range; live (tracing on, or ``torch.profiler``
+recording), they nest as the solve runs, carry ids, and leave the solve's
+bits unchanged."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import _torch_port  # noqa: E402,F401  (one intra-op thread)
+from torch.autograd import profiler as torch_profiler  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from repro_torch.core import bicgstab, comm  # noqa: E402
+from repro_torch.core.halo import FabricAxes  # noqa: E402
+from repro_torch.core.precision import get_policy  # noqa: E402
+from repro_torch.core.stencil import convection_diffusion  # noqa: E402
+from repro_torch.launch.mesh import make_mesh_for_devices  # noqa: E402
+from repro_torch.obs import metrics, trace  # noqa: E402
+
+SHAPE = (12, 10, 8)
+ITERS = 4
+SOLVE_SPANS = {"solve.cast_fields", "operator.build", "krylov.init", "krylov.iteration"}
+
+
+@pytest.fixture(autouse=True)
+def _clean():
+    metrics.reset()
+    trace.reset()
+    trace.disable()
+    yield
+    metrics.reset()
+    trace.reset()
+    trace.disable()
+
+
+def _solve(nrhs: int = 1, **kw):
+    cf = convection_diffusion(SHAPE, device="cpu")
+    gen = torch.Generator().manual_seed(7)
+    b = torch.randn(((nrhs,) if nrhs > 1 else ()) + SHAPE, generator=gen)
+    kw = dict(dict(tol=0.0, maxiter=ITERS), **kw)
+    return bicgstab.solve_distributed(make_mesh_for_devices(), cf, b.to(torch.bfloat16),
+                                      policy=get_policy("bf16_mixed"), backend="fused", **kw)
+
+
+def _profiled(**kw):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = _solve(**kw)
+    return res, [e for e in prof.events() if not e.name.startswith(("aten::", "detach"))]
+
+
+def _parent(e) -> str | None:
+    return e.cpu_parent.name if e.cpu_parent is not None else None
+
+
+def test_off_span_is_the_shared_noop_and_opens_no_range(monkeypatch):
+    entered = []
+    real = torch_profiler.record_function
+
+    def counting(name, *a, **k):
+        entered.append(name)
+        return real(name, *a, **k)
+
+    monkeypatch.setattr(torch_profiler, "record_function", counting)
+    assert not torch_profiler._is_profiler_enabled and not trace.is_enabled()
+    assert trace.span("a") is trace.span("b", k=1) is trace._NULL
+    _solve()
+    assert entered == [] and trace.events() == []
+    trace.enable()                       # the port's tracing alone records, opens no range
+    _solve()
+    assert entered == [] and {e["name"] for e in trace.events()} >= SOLVE_SPANS
+
+
+def test_profiler_records_the_solve_tree():
+    res, evs = _profiled()
+    assert int(res.iterations) == ITERS and not trace.is_enabled()
+    by = {}
+    for e in evs:
+        by.setdefault(e.name, []).append(e)
+    assert len(by["solve"]) == 1 and _parent(by["solve"][0]) is None
+    for name in SOLVE_SPANS:
+        assert {_parent(e) for e in by[name]} == {"solve"}, name
+    assert {_parent(e) for e in by["tuning.lookup"]} == {"operator.build"}
+    assert len(by["krylov.iteration"]) == ITERS
+    # one flag read before the first step and after each step but the last
+    assert len(by["krylov.flag_wait"]) == ITERS
+    assert {_parent(e) for e in by["krylov.flag_wait"]} == {"krylov.iteration"}
+    assert {_parent(e) for e in by["bicgstab.q_in"]} == {"krylov.iteration"}
+    # the program's events are the profiler's ranges
+    names = [e["name"] for e in trace.events()]
+    assert sorted(names) == sorted(e.name for e in evs if e.name in set(names))
+
+
+def test_pad_twice_an_iteration():
+    _, evs = _profiled()
+    pads = [e for e in evs if e.name == "stencil.pad"]
+    assert len(pads) == 2 * ITERS
+    assert {_parent(e) for e in pads} == {"comm.halo.interior"}
+
+
+@pytest.mark.parametrize("nrhs", [1, 2])
+def test_one_iteration_span_per_step_when_the_flag_stops_the_loop(nrhs):
+    trace.enable()
+    res = _solve(nrhs, tol=1e-2, maxiter=60)
+    its = res.iterations.max() if nrhs > 1 else res.iterations
+    assert 0 < int(its) < 60
+    names = [e["name"] for e in trace.events()]
+    assert names.count("krylov.iteration") == int(its)
+    assert names.count("krylov.flag_wait") == int(its) + 1    # the last read stops it
+
+
+def test_events_carry_ids_and_self_time():
+    trace.enable()
+    with trace.span("outside"):
+        pass
+    with trace.span("solve"):
+        with trace.span("a"):
+            with trace.span("b"):
+                pass
+            with trace.span("c"):
+                pass
+    ev = {e["name"]: e for e in trace.events()}
+    solve, a = ev["solve"], ev["a"]
+    assert ev["outside"]["solve_id"] is None and ev["outside"]["parent_id"] is None
+    assert {e["solve_id"] for n, e in ev.items() if n != "outside"} == {solve["id"]}
+    assert (a["parent_id"], ev["b"]["parent_id"], ev["c"]["parent_id"]) == (
+        solve["id"], a["id"], a["id"])
+    assert ev["b"]["parent"] == "a" and ev["b"]["depth"] == 2
+    own = trace.self_us(trace.events())
+    assert own[a["id"]] == pytest.approx(a["dur_us"] - ev["b"]["dur_us"] - ev["c"]["dur_us"])
+    assert own[solve["id"]] == pytest.approx(solve["dur_us"] - a["dur_us"])
+    only_b = trace.self_us(trace.events(), ("b",))
+    assert only_b[a["id"]] == pytest.approx(a["dur_us"] - ev["b"]["dur_us"])
+    assert only_b[solve["id"]] == solve["dur_us"]
+
+
+def test_every_span_of_a_solve_shares_its_id():
+    trace.enable()
+    _solve()
+    _solve()
+    solves = [e["id"] for e in trace.events() if e["name"] == "solve"]
+    assert len(solves) == 2
+    assert {e["solve_id"] for e in trace.events()} == set(solves)
+
+
+@pytest.mark.parametrize("nrhs,tol", [(1, 0.0), (1, 1e-2), (2, 1e-2)])
+@pytest.mark.parametrize("live", ["profiler", "tracing"])
+def test_solve_bits_the_same_with_spans_live_and_off(nrhs, tol, live):
+    off = _solve(nrhs, tol=tol, maxiter=40)
+    if live == "profiler":
+        with profile(activities=[ProfilerActivity.CPU]):
+            on = _solve(nrhs, tol=tol, maxiter=40)
+    else:
+        trace.enable()
+        on = _solve(nrhs, tol=tol, maxiter=40)
+    assert trace.events()
+    for f in ("x", "iterations", "rel_residual", "converged", "breakdown"):
+        assert torch.equal(getattr(off, f), getattr(on, f)), f
+
+
+class _StubPost:
+    """Stands in for a posted exchange on a split fabric: the zero pad."""
+
+    def __init__(self, v, fabric, radius, *, corners, n_batch):
+        self.v, self.r = v, radius
+
+    def wait(self):
+        return torch.nn.functional.pad(self.v, (self.r, self.r) * 3)
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_issue_and_ring_spans_only_on_a_split_fabric(split, monkeypatch):
+    monkeypatch.setattr(comm, "HaloPost", _StubPost)
+    cf = convection_diffusion((8, 8, 6), device="cpu")
+    v = torch.randn((8, 8, 6), generator=torch.Generator().manual_seed(3))
+    fabric = FabricAxes(nx=2) if split else FabricAxes()
+    trace.enable()
+    comm.scheduled_apply(cf, v, fabric, schedule="overlap")
+    names = {e["name"] for e in trace.events()}
+    assert "comm.halo.interior" in names
+    assert {"comm.halo.issue", "comm.halo.ring"} <= names if split else not (
+        {"comm.halo.issue", "comm.halo.ring"} & names)
+    assert metrics.counter("comm.halo_exchanges").value == 1
+
+
+def test_span_list_is_capped_and_counts_what_it_drops(monkeypatch):
+    monkeypatch.setattr(trace, "MAX_EVENTS", 3)
+    trace.enable()
+    for i in range(5):
+        with trace.span("s", i=i):
+            pass
+    assert [e["attrs"]["i"] for e in trace.events()] == [0, 1, 2]
+    assert metrics.counter("trace.dropped").value == 2
