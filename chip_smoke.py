@@ -25,9 +25,17 @@ Phases (one line of output each, JSON where it carries numbers):
    the kernel's ring, each launched twice (the same bits), its vector also
    equal to K1's at the same accumulation; then K1 and K1b (B = 1 and 3), and K6, at the overlap
    schedule's ring slabs, 1x29x17, 37x1x17 and 37x29x1 for star7 (K6 too)
-   and box27 and 4x29x17 for star25.  Then at each path's own shapes: K1-K5 and K6 at
-   608x608x1536 in bf16 (K1 with bf16 accumulation, K6 with f32, K5 also on
-   a self-dot), K1b-K5b at 608^3 x 4 in bf16.  Vector outputs must be
+   and box27 and 4x29x17 for star25; then K1's bare form (the unpadded
+   iterate, whose zero halo the kernel stages) at 256^3 and 37x29x17 for
+   star7, star13, star25 and box27 in f32 and bf16 at every accumulation,
+   unbatched (also off a 16-B boundary) and batched at B = 1 and 4, each
+   against the plain version and against the padded launch on its
+   zero-padded copy, bit for bit.  Then at each path's own shapes: K1-K5 and K6 at
+   608x608x1536 in bf16 (K1 with bf16 accumulation on the bare block, as
+   the one-rank solve runs it, beside the padded launch and the zero pad
+   plus the padded launch it replaces; K6 with f32, its times within 5% of
+   the kernel table's;
+   K5 also on a self-dot), K1b-K5b at 608^3 x 4 in bf16.  Vector outputs must be
    bitwise equal, dot partials within log2(n) x eps_f32 x sum|a_i b_i| (both
    sides sum the same exact f32 products; only the order differs).  Each kernel's time on those
    inputs (CUDA events, warmed up, mean of 20 launches) goes beside its plain
@@ -337,6 +345,18 @@ SLAB_SHAPES = {"star7": [(1, 29, 17), (37, 1, 17), (37, 29, 1)],
                "box27": [(1, 29, 17), (37, 1, 17), (37, 29, 1)],
                "star25": [(4, 29, 17)]}
 CHECK_BATCHES = (1, 3)
+#: K1's bare form (the unpadded iterate, its zero halo staged in the kernel):
+#: every family spec at these shapes, unbatched and batched at these B; Z =
+#: 256 takes its 16-B vector staging (also off a 16-B boundary: element-wise),
+#: Z = 17 its element-wise staging
+BARE_SHAPES = [(256, 256, 256), (37, 29, 17)]
+BARE_BATCHES = (1, 4)
+#: K6's times in PERF.md's kernel table (608x608x1536 bf16, f32 accumulation:
+#: the one-dot and two-dot variants; NVIDIA H100 80GB HBM3 at 700 W), copied
+#: here; today's must lie within K6_TABLE_MARGIN of them (a card set below
+#: 700 W can fall outside)
+K6_TABLE_MS = {"stencil7_dot": 3.91, "stencil7_two_dots": 3.33}
+K6_TABLE_MARGIN = 0.05
 FAMILY_MESH = (256, 256, 256)   # box27 and star25 timed here, off the measured paths
 #: the redesigned kernels' times before their redesign, as PERF.md's kernel table
 #: gives them in brackets (NVIDIA H100 80GB HBM3 at 700 W), printed beside the new ones
@@ -637,6 +657,52 @@ def check_stencil(torch, gen, shape, dtype, sname) -> None:
                                   f"{sname} {label} B={nb} accum {str(acc).split('.')[-1]}")
 
 
+def check_bare_stencil(torch) -> None:
+    """K1 and K1b on the bare block against the plain version
+    (``stencil_nd_ref``) and against the padded launch on its zero-padded
+    copy, bit for bit: all four family specs, f32 and bf16 with every
+    accumulation, unbatched and at BARE_BATCHES, at BARE_SHAPES; the
+    unbatched form also on a block that starts off a 16-B boundary."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import stencil
+    from repro_torch.kernels.stencil_nd.kernel import stencil_nd, stencil_nd_batched
+    from repro_torch.kernels.stencil_nd.ref import stencil_nd_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for shape in BARE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            rnd = lambda shp: torch.randn(shp, generator=gen, device=dev).to(dtype)
+            accs = [torch.float32] if dtype == torch.float32 else [torch.bfloat16, torch.float32]
+            for sname in ("star7", "star13", "star25", "box27"):
+                spec = stencil.get_spec(sname)
+                r = spec.radius
+                cfs = [rnd(shape) * 0.2 for _ in spec.offsets]
+                n = math.prod(shape)
+                off = torch.empty(n + 1, dtype=dtype, device=dev)[1:].view(shape)
+                off.copy_(rnd(shape))
+                cases = [("stencil_nd", stencil_nd, rnd(shape), ""),
+                         ("stencil_nd", stencil_nd, off, " off 16-B")]
+                cases += [("stencil_nd_batched", stencil_nd_batched, rnd((nb,) + shape),
+                           f" B={nb}") for nb in BARE_BATCHES]
+                for name, launch, v, what in cases:
+                    for acc in accs:
+                        kw = dict(radius=r, accum_dtype=acc)
+                        label = (f"bare {sname} {'x'.join(map(str, shape))}"
+                                 f" {str(dtype).split('.')[-1]}{what}"
+                                 f" accum {str(acc).split('.')[-1]}")
+                        got = launch(v, cfs, spec.offsets, **kw)
+                        vec_eq(name, got, stencil_nd_ref(v, cfs, spec.offsets, accum_dtype=acc),
+                               label)
+                        same_bits(name, [got], [launch(F.pad(v, (r, r) * 3), cfs, spec.offsets,
+                                                       **kw)],
+                                  label, against="the padded launch on its zero-padded copy")
+                del cfs, off, cases
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def check_kernels(torch) -> None:
     """Every kernel vs its plain version at CHECK_SHAPES, and the stencil at
     the ring slabs of SLAB_SHAPES."""
@@ -661,6 +727,7 @@ def check_kernels(torch) -> None:
             for dtype in (torch.float32, torch.bfloat16):
                 check_stencil(torch, gen, shape, dtype, sname)
     torch.cuda.synchronize()
+    check_bare_stencil(torch)
 
 
 def _rec(torch, out, name, kern, plain, moved, flops, library=None, **beside) -> None:
@@ -677,13 +744,19 @@ def check_and_time_paper_mesh(torch) -> dict:
     """Each kernel against its plain version at the main path's shape and
     dtype (608x608x1536 bf16, star7, bf16 accumulation; K6 with f32
     accumulation, as solve_ref_fused runs it), then the times of both on the
-    same inputs, with bytes and flops of the work for the bound."""
+    same inputs, with bytes and flops of the work for the bound.  K1 is
+    timed on the bare block, the one-rank solve's form, beside the padded
+    launch and the zero pad plus the padded launch that it replaces."""
+    import torch.nn.functional as F
+
     from repro_torch.core import stencil
     from repro_torch.kernels.fused_iter import kernel as fk
     from repro_torch.kernels.fused_iter import ref as fref
     from repro_torch.kernels.stencil_nd.fused import stencil7_dots_padded
     from repro_torch.kernels.stencil_nd.kernel import stencil_nd
-    from repro_torch.kernels.stencil_nd.ref import stencil7_dots_padded_ref, stencil_nd_padded_ref
+    from repro_torch.kernels.stencil_nd.ref import (
+        stencil7_dots_padded_ref, stencil_nd_padded_ref, stencil_nd_ref,
+    )
 
     dev, dt = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -700,6 +773,15 @@ def check_and_time_paper_mesh(torch) -> dict:
     stencil_plain = lambda: stencil_nd_padded_ref(vp, cfs, spec.offsets, radius=1,
                                                   accum_dtype=dt)
     vec_eq("stencil_nd", stencil_kernel(), stencil_plain(), f"star7 {label} accum bfloat16")
+    bare_v = vp[1:-1, 1:-1, 1:-1].contiguous()
+    bare_kernel = lambda: stencil_nd(bare_v, cfs, spec.offsets, radius=1, accum_dtype=dt)
+    pad_then_padded = lambda: stencil_nd(F.pad(bare_v, (1, 1) * 3), cfs, spec.offsets,
+                                         radius=1, accum_dtype=dt)
+    vec_eq("stencil_nd", bare_kernel(), stencil_nd_ref(bare_v, cfs, spec.offsets,
+                                                       accum_dtype=dt),
+           f"bare star7 {label} accum bfloat16")
+    same_bits("stencil_nd", [bare_kernel()], [pad_then_padded()], f"bare star7 {label}",
+              against="the padded launch on its zero-padded copy")
     check_fused_iter(torch, a, o, b, v, label)
     # a self-dot, as the solver's setup takes <b,b>: positive terms show summation drift
     dot_close("dot_mixed", fk.dot_mixed(v[1], v[1]), fref.dot_mixed_ref(v[1], v[1]), v[1], v[1],
@@ -712,8 +794,10 @@ def check_and_time_paper_mesh(torch) -> dict:
     vec = nbytes(v[0])
     out = {}
     rec = lambda *args, **extra: _rec(torch, out, *args, **extra)
-    rec("stencil_nd", stencil_kernel, stencil_plain, nbytes(vp, *cfs) + vec,
-        2 * spec.n_offsets * n)
+    rec("stencil_nd", bare_kernel,
+        lambda: stencil_nd_ref(bare_v, cfs, spec.offsets, accum_dtype=dt),
+        nbytes(bare_v, *cfs) + vec, 2 * spec.n_offsets * n, padded=stencil_kernel,
+        pad_then_padded=pad_then_padded)
     rec("update_q_dots", lambda: fk.update_q_dots(a, v[0], v[1], v[2]),
         lambda: fref.update_q_dots_ref(a, v[0], v[1], v[2]), 4 * vec, 6 * n)
     rec("update_xr_dots", lambda: fk.update_xr_dots(a, o, *v),
@@ -735,7 +819,7 @@ def check_and_time_paper_mesh(torch) -> dict:
     rec("stencil7_two_dots", lambda: stencil7_dots_padded(vp, None, cfs, two_dots=True),
         lambda: stencil7_dots_padded_ref(vp, None, cfs, spec.offsets, two_dots=True),
         nbytes(vp, *cfs) + vec, (2 * spec.n_offsets + 4) * n)
-    del vp, cfs, v, w
+    del vp, cfs, v, w, bare_v
     torch.cuda.empty_cache()
     # dot_mixed in f32 beside torch.dot on the same f32 inputs
     x, y = (torch.randn(n, generator=gen, device=dev) for _ in range(2))
@@ -838,13 +922,13 @@ def time_family(torch) -> dict:
 def iteration_bytes(shape, itemsize: int, radius: int = 1, n_off: int = 6, nrhs: int = 1) -> int:
     """Bytes one fused BiCGStab iteration must move for ``nrhs`` right-hand
     sides: each op's inputs read once and its outputs written once, with the
-    batched SpMV reading each coefficient field once for all of them."""
+    batched SpMV reading each coefficient field once for all of them.  The
+    SpMV reads the bare v (the kernel stages its zero halo; no padded copy
+    on one rank), so the stencil's ``radius`` does not move the count."""
     n = math.prod(shape)
-    n_pad = math.prod(s + 2 * radius for s in shape)
-    pad = nrhs * (n + n_pad)                    # read v, write its zero-padded copy
-    spmv = nrhs * n_pad + n_off * n + nrhs * n  # read the padded v and the fields, write u
+    spmv = nrhs * n + n_off * n + nrhs * n      # read v and the fields, write u
     fused = nrhs * (3 + 4 + 7 + 4 + 2) * n      # q_in, update_q_dots, update_xr_dots,
-    return (2 * (pad + spmv) + fused) * itemsize  # update_p, dot_mixed
+    return (2 * spmv + fused) * itemsize        # update_p, dot_mixed
 
 
 def ref_fused_iteration_bytes(shape, itemsize: int) -> int:
@@ -1171,15 +1255,14 @@ def slice_iteration_bytes(label: str, shape, itemsize: int) -> int:
     """Bytes one iteration of path ``label`` must move in ``bf16_mixed``
     (every vector in the storage dtype): each statement's tensor inputs read
     once and its output written once, as :func:`iteration_bytes` counts.  An
-    SpMV is the zero pad and the stencil kernel; a dot reads 2 words, an
+    SpMV is the stencil kernel on the bare v; a dot reads 2 words, an
     AXPY 2 and writes 1, ``axpy2`` reads 3.  Preconditioned BiCGStab is the
     fused iteration (20 words beside its SpMVs) with each SpMV wrapped:
     Chebyshev adds d - 1 SpMVs and 2 + 9 (d - 1) words (``r * 1/theta``,
     then per step ``r - Ad``, ``a d + b r``, ``z + d``), Jacobi 3 words
     (``v * 1/diag``) and the raw diagonal's ``u + (d - 1) v``, 4."""
     n = math.prod(shape)
-    n_pad = math.prod(s + 2 for s in shape)
-    spmv = (n + n_pad) + (n_pad + 6 * n + n)
+    spmv = n + 6 * n + n
     d = CHEB_DEGREE
     words = {
         "cg": spmv + (2 * 2 + 3 * 3) * n,
@@ -1565,7 +1648,7 @@ SWEEP_CELLS = (("cs1_paper", PAPER_MESH, 1), ("joule_600", JOULE_MESH, MAIN_NRHS
 #: the spans 9b's trace.json must hold (one rank: no comm.halo.issue nor .ring)
 OBS_SPANS = {"solve.krylov", "solve", "solve.cast_fields", "operator.build", "tuning.lookup",
              "krylov.init", "krylov.iteration", "krylov.flag_wait", "comm.halo.interior",
-             "stencil.pad", "bicgstab.q_in"}
+             "bicgstab.q_in"}
 STENCIL_KERNEL = "stencil_nd_kernel"
 
 
@@ -4145,6 +4228,17 @@ def main(argv=None) -> int:
               **times["batched"]))
     emit(dict(phase="kernel_times_family", shape=list(FAMILY_MESH), dtype="bfloat16",
               accum="bfloat16", **times["family_256"]))
+    k1 = times["bf16"]["stencil_nd"]
+    emit(dict(phase="k1_forms", shape=list(PAPER_MESH), bare_ms=k1["ms"],
+              padded_ms=k1["padded_ms"], pad_then_padded_ms=k1["pad_then_padded_ms"],
+              bound_ms=k1["bound_ms"]))
+    k6 = {k: dict(ms=times["bf16"][k]["ms"], table_ms=v,
+                  ok=abs(times["bf16"][k]["ms"] / v - 1) <= K6_TABLE_MARGIN)
+          for k, v in K6_TABLE_MS.items()}
+    for k, row in k6.items():
+        check(row["ok"], f"{k}: {row['ms']:.3f} ms, not within {K6_TABLE_MARGIN:.0%} of the "
+                         f"kernel table's {row['table_ms']} ms")
+    emit(dict(phase="k6_unchanged", card=smi, within=K6_TABLE_MARGIN, kernels=k6))
     flat = {**times["bf16"], **times["batched"]}
     emit(dict(phase="redesigned", card=smi, kernels={
         k: dict(ms=flat[k]["ms"], earlier_ms=v, bound_ms=flat[k]["bound_ms"],

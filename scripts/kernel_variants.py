@@ -10,10 +10,11 @@ with a few text substitutions, built into its own copy of the package under
 ``build/kernel_variants/`` (all builds at once; removed at the end), then
 timed in the order given and again in reverse, each checked bit for bit
 against the plain version first.  ``stencil``: K1 at 608x608x1536 (bf16
-storage, bf16 and f32 accumulation) and K1b at 608^3 x 4 RHS (star7, bf16
-storage and accumulation); its ``march_*`` variants, as ``stencil7_dot``'s,
-run the x-march's ring in other forms than the shared ``Ring`` (described
-where they are defined).  ``fused_iter``: K2
+storage, bf16 and f32 accumulation) on the bare block, as a one-rank solve
+runs it, and with bf16 accumulation on the padded block, and K1b at 608^3 x
+4 RHS (star7, bf16 storage and accumulation, bare); its ``march_*``
+variants, as ``stencil7_dot``'s, run the x-march's ring in other forms than
+the shared ``Ring`` (described where they are defined).  ``fused_iter``: K2
 (update_q_dots) and K4 (update_p) at 608x608x1536 and K2b/K4b at 608^3 x 4
 RHS, bf16, their dots' relative gap to the plain version recorded beside
 the bitwise check.  ``stencil7_dot``: K6 at 608x608x1536 (bf16 storage, f32
@@ -63,22 +64,25 @@ out = {}
 '''
 
 STENCIL_TIME = CUDA_MS + r'''
+import torch.nn.functional as F
 from repro_torch.core import stencil
 from repro_torch.kernels.stencil_nd.kernel import stencil_nd, stencil_nd_batched
 from repro_torch.kernels.stencil_nd.ref import stencil_nd_padded_ref
 
 offs = stencil.STAR7.offsets
-for name, shape, nb, acc in (("k1", (608, 608, 1536), 0, dt),
-                             ("k1_acc_f32", (608, 608, 1536), 0, torch.float32),
-                             ("k1b", (608, 608, 608), 4, dt)):
+for name, shape, nb, acc, bare in (("k1", (608, 608, 1536), 0, dt, True),
+                                   ("k1_padded", (608, 608, 1536), 0, dt, False),
+                                   ("k1_acc_f32", (608, 608, 1536), 0, torch.float32, True),
+                                   ("k1b", (608, 608, 608), 4, dt, True)):
     pre = (nb,) if nb else ()
-    vp = torch.randn(pre + tuple(s + 2 for s in shape), generator=g, device=dev).to(dt)
+    vp = F.pad(torch.randn(pre + shape, generator=g, device=dev).to(dt), (1, 1) * 3)
+    v = vp[(slice(None),) * len(pre) + (slice(1, -1),) * 3].contiguous() if bare else vp
     cfs = [(0.1 * torch.randn(shape, generator=g, device=dev)).to(dt) for _ in offs]
     f = stencil_nd_batched if nb else stencil_nd
-    run = lambda: f(vp, cfs, offs, radius=1, accum_dtype=acc)
+    run = lambda: f(v, cfs, offs, radius=1, accum_dtype=acc)
     want = stencil_nd_padded_ref(vp, cfs, offs, radius=1, accum_dtype=acc)
     out[name] = dict(bitwise=bool(run().equal(want)), ms=[cuda_ms(run) for _ in range(3)])
-    del vp, cfs, want
+    del vp, v, cfs, want
     torch.cuda.empty_cache()
 print(json.dumps(out))
 '''
@@ -141,20 +145,20 @@ _HINTS = [("if (wide) return __ldg(", "if (wide) return __ldcs("),
 #: loop in one device function that takes the plane's body as a callback
 #: (march_callback, the function in _MARCH)
 _MARCH = r"""
-template <int R, int SLOTS, int SLOT, int VZ, typename RawT, typename St, typename Src,
-          typename Body>
+template <int R, int SLOTS, int SLOT, typename RawT, typename St, typename Src, typename Body>
 __device__ __forceinline__ void march(St& stage, RawT* sm, const Src& src_of, int64_t vstride,
-                                      int pz, int nc, int qs, int rows_ok, int cols_ok, int x0,
-                                      int x1, bool live, const Body& body) {
+                                      int pz, int nc, int qs, int x0, int x1, bool live,
+                                      const Body& body) {
   for (int j = 0; j <= 2 * R; ++j) {
-    stage.load(src_of(x0 + j), vstride, pz, nc, rows_ok, cols_ok);
-    stage.store(sm + j * SLOT + (VZ - R), qs, nc);
+    stage.load(src_of(x0 + j), vstride, pz, nc, sm + j * SLOT, qs);
+    stage.store(sm + j * SLOT, qs, nc);
   }
   __syncthreads();
   int base = 0;
   for (int x = x0; x < x1; ++x) {
     const bool more = x + 1 < x1;
-    if (more) stage.load(src_of(x + 2 * R + 1), vstride, pz, nc, rows_ok, cols_ok);
+    const int next = base + 2 * R + 1 < SLOTS ? base + 2 * R + 1 : base + 2 * R + 1 - SLOTS;
+    if (more) stage.load(src_of(x + 2 * R + 1), vstride, pz, nc, sm + next * SLOT, qs);
     if (live) {
       int slot[2 * R + 1];
 #pragma unroll
@@ -162,20 +166,17 @@ __device__ __forceinline__ void march(St& stage, RawT* sm, const Src& src_of, in
         slot[d] = (base + d < SLOTS ? base + d : base + d - SLOTS) * SLOT;
       body(x, slot);
     }
-    if (more) {
-      const int next = base + 2 * R + 1 < SLOTS ? base + 2 * R + 1 : base + 2 * R + 1 - SLOTS;
-      stage.store(sm + next * SLOT + (VZ - R), qs, nc);
-    }
+    if (more) stage.store(sm + next * SLOT, qs, nc);
     __syncthreads();
     base = base + 1 == SLOTS ? 0 : base + 1;
   }
 }
 
 """
-_K1_HEAD = ("template <typename T, typename A, int KIND, int R, int NB, bool PAIR>\n"
+_K1_HEAD = ("template <typename T, typename A, int KIND, int R, int NB, int FORM>\n"
             "__global__ void __launch_bounds__(kThreads, min_blocks(NB)) stencil_nd_kernel(")
-_K1_RING_HEAD = """  Ring<R, SLOT, VZ, RawT, decltype(stage), decltype(src_of)> ring{
-      stage, sm, src_of, p.vp_stride, pz, nc, QS, rows_ok, cols_ok, x1};
+_K1_RING_HEAD = """  Ring<R, SLOT, RawT, decltype(stage), decltype(src_of)> ring{
+      stage, sm, src_of, p.vp_stride, pz, nc, QS, x1};
   ring.begin(x0);                                   // planes x0-r .. x0+r
 """
 _K1_RING_TOP = """  for (int x = x0; x < x1; ++x) {
@@ -195,8 +196,8 @@ _K1_IN_KERNEL = [
     (_K1_RING_HEAD, """\
   // prologue: padded planes x0 .. x0+2r (interior x0-r .. x0+r) into slots 0 .. 2r
   for (int j = 0; j <= 2 * R; ++j) {
-    stage.load(src_of(x0 + j), p.vp_stride, pz, nc, rows_ok, cols_ok);
-    stage.store(sm + j * SLOT + (VZ - R), QS, nc);
+    stage.load(src_of(x0 + j), p.vp_stride, pz, nc, sm + j * SLOT, QS);
+    stage.store(sm + j * SLOT, QS, nc);
   }
   __syncthreads();
 """),
@@ -204,7 +205,8 @@ _K1_IN_KERNEL = [
   int base = 0;                                     // slot of padded plane x (interior x - r)
   for (int x = x0; x < x1; ++x) {
     const bool more = x + 1 < x1;
-    if (more) stage.load(src_of(x + 2 * R + 1), p.vp_stride, pz, nc, rows_ok, cols_ok);
+    const int next = base + 2 * R + 1 < SLOTS ? base + 2 * R + 1 : base + 2 * R + 1 - SLOTS;
+    if (more) stage.load(src_of(x + 2 * R + 1), p.vp_stride, pz, nc, sm + next * SLOT, QS);
     if (live) {
       int slot[2 * R + 1];                          // element offset of interior plane x + dx
 #pragma unroll
@@ -212,10 +214,7 @@ _K1_IN_KERNEL = [
         slot[d] = (base + d < SLOTS ? base + d : base + d - SLOTS) * SLOT;
 """),
     (_K1_RING_END, _K1_STORE + """    }
-    if (more) {
-      const int next = base + 2 * R + 1 < SLOTS ? base + 2 * R + 1 : base + 2 * R + 1 - SLOTS;
-      stage.store(sm + next * SLOT + (VZ - R), QS, nc);
-    }
+    if (more) stage.store(sm + next * SLOT, QS, nc);
     __syncthreads();
     base = base + 1 == SLOTS ? 0 : base + 1;
   }
@@ -225,16 +224,15 @@ _K1_IN_KERNEL = [
 _K1_CALLBACK = [
     (_K1_HEAD, _MARCH + _K1_HEAD),
     (_K1_RING_HEAD, ""),
-    (_K1_RING_TOP, "  march<R, SLOTS, SLOT, VZ>(stage, sm, src_of, p.vp_stride, pz, nc, QS, "
-                   "rows_ok,\n                            cols_ok, x0, x1, live, "
-                   "[&](int x, const int* slot) {\n"),
+    (_K1_RING_TOP, "  march<R, SLOTS, SLOT>(stage, sm, src_of, p.vp_stride, pz, nc, QS, x0, x1,"
+                   "\n                        live, [&](int x, const int* slot) {\n"),
     (_K1_RING_END, _K1_STORE + "  });\n}\n"),
 ]
 
 #: the same forms of K6
 _K6_HEAD = "template <typename T, typename A, int ND, bool ALIGNED4>\n__global__"
-_K6_RING_HEAD = """    Ring<1, SLOT, VZ, RawT, decltype(stage), decltype(src_of)> ring{
-        stage, sm, src_of, 0, pz, 1, 0, rows_ok, cols_ok, x1};
+_K6_RING_HEAD = """    Ring<1, SLOT, RawT, decltype(stage), decltype(src_of)> ring{
+        stage, sm, src_of, 0, pz, 1, 0, x1};
     ring.begin(x0);                                 // planes x0-1 .. x0+1
 """
 _K6_RING_TOP = """    for (int x = x0; x < x1; ++x) {
@@ -254,8 +252,8 @@ _K6_IN_KERNEL = [
     (_K6_RING_HEAD, """    constexpr int SLOTS = 4;
     // prologue: padded planes x0 .. x0+2 (interior x0-1 .. x0+1) into slots 0 .. 2
     for (int j = 0; j <= 2; ++j) {
-      stage.load(src_of(x0 + j), 0, pz, 1, rows_ok, cols_ok);
-      stage.store(sm + j * SLOT + (VZ - 1), 0, 1);
+      stage.load(src_of(x0 + j), 0, pz, 1);
+      stage.store(sm + j * SLOT, 0, 1);
     }
     __syncthreads();
 """),
@@ -263,7 +261,7 @@ _K6_IN_KERNEL = [
     int base = 0;                                   // slot of padded plane x (interior x - 1)
     for (int x = x0; x < x1; ++x) {
       const bool more = x + 1 < x1;
-      if (more) stage.load(src_of(x + 3), 0, pz, 1, rows_ok, cols_ok);
+      if (more) stage.load(src_of(x + 3), 0, pz, 1);
       if (live) {   // rows past by and lanes past Z add nothing to the dots
         int slot[3];                                // element offset of interior plane x + dx
 #pragma unroll
@@ -273,7 +271,7 @@ _K6_IN_KERNEL = [
     (_K6_RING_END, _K6_FLUSH + """      }
       if (more) {
         const int next = base + 3 < SLOTS ? base + 3 : base + 3 - SLOTS;
-        stage.store(sm + next * SLOT + (VZ - 1), 0, 1);
+        stage.store(sm + next * SLOT, 0, 1);
       }
       __syncthreads();
       base = base + 1 == SLOTS ? 0 : base + 1;
@@ -283,9 +281,8 @@ _K6_IN_KERNEL = [
 _K6_CALLBACK = [
     (_K6_HEAD, _MARCH + _K6_HEAD),
     (_K6_RING_HEAD, "    constexpr int SLOTS = 4;\n"),
-    (_K6_RING_TOP, "    march<1, SLOTS, SLOT, VZ>(stage, sm, src_of, 0, pz, 1, 0, rows_ok, "
-                   "cols_ok, x0,\n"
-                   "                              x1, live, [&](int x, const int* slot) {\n"),
+    (_K6_RING_TOP, "    march<1, SLOTS, SLOT>(stage, sm, src_of, 0, pz, 1, 0, x0, x1, live,\n"
+                   "                          [&](int x, const int* slot) {\n"),
     (_K6_RING_END, _K6_FLUSH + "    });\n"),
 ]
 
@@ -296,9 +293,13 @@ FAMILIES = {
         "as_is": [],
         "2_blocks_per_sm": [("kMinBlocks1 = 4", "kMinBlocks1 = 2")],
         "3_blocks_per_sm": [("kMinBlocks1 = 4", "kMinBlocks1 = 3")],
+        "5_blocks_per_sm": [("kMinBlocks1 = 4", "kMinBlocks1 = 5")],
         "2_byte_staging": [("(reinterpret_cast<uintptr_t>(vp) & 3) == 0;", "false;")],
         "2_byte_staging_2_blocks": [("(reinterpret_cast<uintptr_t>(vp) & 3) == 0;", "false;"),
                                     ("kMinBlocks1 = 4", "kMinBlocks1 = 2")],
+        # the bare block staged element by element (bf16 pairs of 2-B loads), not in vectors
+        "bare_element_staging": [("(z % Tile<T>::VZ == 0 && aligned16(vp) ? kBareVec : kElems)",
+                                  "kElems")],
         "march_in_kernel": _K1_IN_KERNEL,
         "march_callback": _K1_CALLBACK,
     }),

@@ -342,8 +342,8 @@ def cell_problem(spec: StencilSpec, dtype, shape: tuple[int, int, int], *, nrhs:
 def config_apply(problem: CellProblem, spec: StencilSpec, config: KernelConfig) -> torch.Tensor:
     """One overlapped SpMV of the cell under ``config``, as the solve runs
     it on the problem's fabric: with ``fuse_ring`` one pass over the
-    exchanged block; without, the kernel on the zero-padded block and a
-    patch of each ring slab (none on one rank).  The accumulation is the
+    exchanged block; without, the kernel on the bare block and a patch of
+    each ring slab (none on one rank).  The accumulation is the
     storage dtype, as every policy runs the kernel."""
     from repro_torch.kernels.stencil_nd.fused import fused_ring_apply
     from repro_torch.kernels.stencil_nd.ops import _kernel, ring_patch_apply
@@ -352,8 +352,7 @@ def config_apply(problem: CellProblem, spec: StencilSpec, config: KernelConfig) 
     acc = v.dtype
     if config.fuse_ring:
         return fused_ring_apply(exchange, cf_list, spec, config, accum_dtype=acc)
-    r = spec.radius
-    u = _kernel(exchange.n_batch)(F.pad(v, (r, r) * 3), cf_list, spec.offsets, radius=r,
+    u = _kernel(exchange.n_batch)(v, cf_list, spec.offsets, radius=spec.radius,
                                   accum_dtype=acc, config=config)
     return ring_patch_apply(exchange, cf_list, spec, u, fabric, accum_dtype=acc,
                             config=config)

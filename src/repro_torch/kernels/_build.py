@@ -34,7 +34,8 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C entry points -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
-    "repro_stencil_nd": [_I, _I, _P, _P, _P, _I, _I, _L, _L, _L, _L, _P, _I, _I, _I, _I, _P],
+    "repro_stencil_nd": [_I, _I, _P, _I, _P, _P, _I, _I, _L, _L, _L, _L, _P, _I, _I, _I, _I,
+                         _P],
     "repro_stencil7_dot": [_I, _I, _P, _P, _P, _I, _L, _L, _L, _P, _I, _I, _I, _L, _P, _P, _P],
     "repro_update_q_dots": [_I, _P, _P, _P, _P, _P, _P, _P, _L, _L, _P],
     "repro_update_xr_dots": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _P],

@@ -85,11 +85,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksDot) stencil7_dot_kernel(c
     const RawT* vp = static_cast<const RawT*>(p.vp);
 
     constexpr bool PAIR = sizeof(T) == 2;
-    Stage<RawT, ROWS, W, P, 1, PAIR, PAIR && !ALIGNED4> stage;   // the plane being staged
+    // the plane being staged
+    Stage<RawT, ROWS, W, P, 1, PAIR, PAIR && !ALIGNED4> stage(rows_ok, cols_ok);
     auto src_of = [&](int pp) { return vp + ((int64_t)pp * py + ty0) * pz + tz0; };
 
-    Ring<1, SLOT, VZ, RawT, decltype(stage), decltype(src_of)> ring{
-        stage, sm, src_of, 0, pz, 1, 0, rows_ok, cols_ok, x1};
+    Ring<1, SLOT, RawT, decltype(stage), decltype(src_of)> ring{
+        stage, sm, src_of, 0, pz, 1, 0, x1};
     ring.begin(x0);                                 // planes x0-1 .. x0+1
 
     const int y = ty0 + ty_t, zt = tz0 + VZ * tz_t;

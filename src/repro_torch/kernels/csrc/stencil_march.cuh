@@ -15,13 +15,25 @@
 //   reads v from shared memory as 16-B vectors, shifting in registers for
 //   the z taps.  Where Z is not a multiple of VZ, or a field is not 16-B
 //   aligned, the same lanes load and store element by element.
+// * Two forms of v.  The r-padded block, as the multi-rank halo exchange
+//   assembles it: the tile's window of TZ + 2r elements a row starts r
+//   before the tile.  The bare block, on one rank or where the halo is not
+//   yet needed (the overlap schedule's interior): the same window, or the
+//   whole shared row, a 16-B vector either side of the tile, and every
+//   element outside the block (a plane before 0 or past bx, a row outside
+//   [0, by), a column outside [0, Z)) is staged as 0, the zero halo the
+//   padded copy would have held.  Either way each tile row's interior
+//   starts on a 16-B boundary of shared memory.
 // * Alignment: the padded row pitch (Z+2r) x itemsize is 3076 B at the paper
-//   mesh (1220 B at 608^3), not a multiple of 16, so neither TMA nor 16-B
-//   loads can tile v in device memory.  v is therefore staged with 4-B loads
-//   (bf16 pairs, when Z is even and so every padded row starts 4-B aligned;
-//   f32 elements) or 2-B loads (bf16, Z odd) into shared-memory rows laid out
-//   so each tile row's interior starts on a 16-B boundary; the coefficient
-//   fields and u have a pitch of Z x itemsize, 16-B aligned when
+//   mesh (1220 B at 608^3), not a multiple of 16, so the padded block is
+//   staged with 4-B loads (bf16 pairs, when Z is even and so every padded
+//   row starts 4-B aligned; f32 elements) or 2-B loads (bf16, Z odd),
+//   through registers.  The bare pitch Z x itemsize (3072 B, 1216 B) is a
+//   multiple of 16 when Z % VZ == 0, and the bare window then starts on a
+//   vector, so with v 16-B aligned the bare block is copied in 16-B vectors
+//   (cp.async, each vector wholly inside or outside the block) straight into
+//   shared memory; otherwise element by element through registers.  The
+//   coefficient fields and u have a pitch of Z x itemsize, 16-B aligned when
 //   Z % VZ == 0.
 // * The x range splits into segments (each re-reading its 2r halo planes)
 //   so that (y, z) tiles x segments give enough blocks for the 132 SMs; the
@@ -233,51 +245,85 @@ struct Acc<bf16, bf16> {
   __device__ __forceinline__ uint4 pack() const { return make_uint4(w[0], w[1], w[2], w[3]); }
 };
 
-// Staging a plane's ROWS x W window (W = TZ + 2r elements per row): thread
-// tid takes loads e = tid + k * kThreads, k < KP, into registers (0 outside
-// the padded block), then stores them into a ring slot.  PAIR: bf16 rows
-// that start 4-B aligned (Z even) load element pairs, half the loads and
-// registers; otherwise one element a load.  SPLIT (with PAIR): rows not 4-B
-// aligned still hold element pairs in registers, each pair from two 2-B
-// loads, for half the registers of one element a load.
+// Staging a plane's ROWS x W window into a shared row of pitch P, kLead
+// elements in: thread tid takes loads e = tid + k * kThreads, k < KP, into
+// registers (0 outside the block), then stores them into a ring slot.  PAIR:
+// bf16 rows that start 4-B aligned (Z even) load element pairs, half the
+// loads and registers; otherwise one element a load.  SPLIT (with PAIR):
+// rows not 4-B aligned still hold element pairs in registers, each pair from
+// two 2-B loads, for half the registers of one element a load.  One element a
+// load also stages the bare block (see the top of this file).
+//
+// The window's element (row, col) lies inside the block when row0 + row is in
+// [0, rows_ok) and col0 + col in [0, cols_ok): the padded block passes row0 =
+// col0 = 0, the bare block the window's origin in v (pairs stage only the
+// padded block).  Where each of a thread's loads falls is the same on every
+// plane, so one element a load tests it once, at construction, into a bit
+// a load.
 template <typename RawT, int ROWS, int W, int P, int NB, bool PAIR, bool SPLIT = false>
 struct Stage {
   static constexpr int U = PAIR ? 2 : 1;             // elements per load
   static constexpr int WU = W / U;                    // loads per row
   static constexpr int KP = (ROWS * WU + kThreads - 1) / kThreads;
+  static constexpr int kLead = (P - W) / 2;           // the window's offset in the shared row
   using Word = std::conditional_t<PAIR, uint32_t, RawT>;
   static_assert(W % U == 0, "pairs tile the row");
   static_assert(PAIR || !SPLIT, "split loads fill pairs");
+  static_assert(PAIR || KP <= 32, "a bit a load");
   Word pf[NB][KP];
+  int rows_ok, cols_ok;    // pairs: a load is inside when row < rows_ok and col < cols_ok
+  uint32_t inside = 0;     // one element a load: bit k set when load k is inside
 
-  // src: the plane's first staged element of RHS 0; vstride: elements between RHS
+  __device__ __forceinline__ Stage(int rows_ok, int cols_ok, int row0 = 0, int col0 = 0)
+      : rows_ok(rows_ok), cols_ok(cols_ok) {
+    if constexpr (!PAIR) {
+#pragma unroll
+      for (int k = 0; k < KP; ++k) {
+        const int e = threadIdx.x + k * kThreads, row = e / WU, col = e % WU;
+        if (row < ROWS && (unsigned)(row0 + row) < (unsigned)rows_ok
+            && (unsigned)(col0 + col) < (unsigned)cols_ok)
+          inside |= 1u << k;
+      }
+    }
+  }
+
+  // src: the plane's first staged element of RHS 0 (bare: null for a plane
+  // outside the block, staged as 0); vstride: elements between RHS; pz: v's
+  // row pitch.  The slot (the last two arguments, StageAsync's) is store's
+  // to write.
   __device__ __forceinline__ void load(const RawT* src, int64_t vstride, int pz, int nc,
-                                       int rows_ok, int cols_ok) {
+                                       RawT* = nullptr, int = 0) {
 #pragma unroll
     for (int q = 0; q < NB; ++q) {
 #pragma unroll
       for (int k = 0; k < KP; ++k) {
         const int e = threadIdx.x + k * kThreads, row = e / WU, col = U * (e % WU);
-        const RawT* at = src + q * vstride + row * pz + col;
-        if constexpr (SPLIT) {
-          pf[q][k] = q < nc && row < rows_ok && col < cols_ok
-                         ? Word(__ldg(at)) | (col + 1 < cols_ok ? Word(__ldg(at + 1)) << 16 : 0u)
-                         : Word(0);
+        if constexpr (!PAIR) {
+          // the address is formed only for an element inside the block
+          pf[q][k] = q < nc && src != nullptr && (inside >> k & 1u)
+                         ? __ldg(src + q * vstride + row * pz + col) : Word(0);
         } else {
-          pf[q][k] = q < nc && row < rows_ok && col < cols_ok
-                         ? __ldg(reinterpret_cast<const Word*>(at)) : Word(0);
+          const RawT* at = src + q * vstride + row * pz + col;
+          if constexpr (SPLIT) {
+            pf[q][k] = q < nc && row < rows_ok && col < cols_ok
+                           ? Word(__ldg(at)) | (col + 1 < cols_ok ? Word(__ldg(at + 1)) << 16 : 0u)
+                           : Word(0);
+          } else {
+            pf[q][k] = q < nc && row < rows_ok && col < cols_ok
+                           ? __ldg(reinterpret_cast<const Word*>(at)) : Word(0);
+          }
         }
       }
     }
   }
-  // dst: the slot's first staged element of RHS 0; qs: elements between RHS
+  // dst: the slot's first shared element of RHS 0; qs: elements between RHS
   __device__ __forceinline__ void store(RawT* dst, int qs, int nc) const {
 #pragma unroll
     for (int q = 0; q < NB; ++q) {
 #pragma unroll
       for (int k = 0; k < KP; ++k) {
         const int e = threadIdx.x + k * kThreads, row = e / WU, col = U * (e % WU);
-        RawT* at = dst + q * qs + row * P + col;
+        RawT* at = dst + q * qs + row * P + kLead + col;
         if (q < nc && row < ROWS) {
           if constexpr (PAIR) {
             at[0] = (RawT)(pf[q][k] & 0xffffu);
@@ -291,52 +337,117 @@ struct Stage {
   }
 };
 
+// 16 B from device memory into shared memory, asynchronously (cp.async,
+// cached in L2 only); cp_async_wait_all waits for this thread's copies.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Staging a plane of the bare block in 16-B vectors (Z % VZ == 0, v 16-B
+// aligned): the whole shared row of P elements, a vector either side of
+// the tile, copied by cp.async straight into the ring slot, so no register
+// holds the plane in flight.  Vector e of the plane is thread e %
+// kThreads's; a vector outside the block (each lies wholly inside or
+// outside) is stored as zeros; which vectors are inside is tested once, at
+// construction, as in Stage.  load starts the copies into the slot at dst;
+// store waits for them (the Ring's barrier then publishes the slot).
+template <typename RawT, int ROWS, int P, int NB>
+struct StageAsync {
+  static constexpr int VZ = 16 / (int)sizeof(RawT);
+  static constexpr int WU = P / VZ;                    // vectors per row
+  static constexpr int KP = (ROWS * WU + kThreads - 1) / kThreads;
+  static_assert(P % VZ == 0, "vectors tile the row");
+  static_assert(KP <= 32, "a bit a load");
+  uint32_t inside = 0;     // bit k set when vector k is inside
+
+  // the bounds as Stage's, for the bare block
+  __device__ __forceinline__ StageAsync(int rows_ok, int cols_ok, int row0, int col0) {
+#pragma unroll
+    for (int k = 0; k < KP; ++k) {
+      const int e = threadIdx.x + k * kThreads, row = e / WU, col = VZ * (e % WU);
+      if (row < ROWS && (unsigned)(row0 + row) < (unsigned)rows_ok
+          && (unsigned)(col0 + col) < (unsigned)cols_ok)
+        inside |= 1u << k;
+    }
+  }
+
+  // as Stage::load; dst: the slot's first shared element of RHS 0, qs:
+  // elements between RHS in the ring
+  __device__ __forceinline__ void load(const RawT* src, int64_t vstride, int pz, int nc,
+                                       RawT* dst, int qs) {
+#pragma unroll
+    for (int q = 0; q < NB; ++q) {
+#pragma unroll
+      for (int k = 0; k < KP; ++k) {
+        const int e = threadIdx.x + k * kThreads, row = e / WU, col = VZ * (e % WU);
+        if (q < nc && row < ROWS) {
+          RawT* at = dst + q * qs + row * P + col;
+          if (src != nullptr && (inside >> k & 1u))
+            cp_async16(at, src + q * vstride + row * pz + col);
+          else
+            *reinterpret_cast<uint4*>(at) = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+    }
+  }
+  __device__ __forceinline__ void store(RawT*, int, int) const { cp_async_wait_all(); }
+};
+
 // The x-march's ring of 2r+2 slots (one per padded plane) for one block:
 //
-//   Ring<...> ring{stage, sm, src_of, vstride, pz, nc, qs, rows_ok, cols_ok, x1};
+//   Ring<...> ring{stage, sm, src_of, vstride, pz, nc, qs, x1};
 //   ring.begin(x0);                  // padded planes x0 .. x0+2r into slots 0 .. 2r
 //   for (int x = x0; x < x1; ++x) {
-//     ring.prefetch(x);              // padded plane x+2r+1 into registers
+//     ring.prefetch(x);              // padded plane x+2r+1 on its way to the free slot
 //     if (live) ...                  // interior plane x+d-r sits at ring.slot(d)
 //     ring.advance(x);               // into the free slot; barrier; rotate
 //   }
 //
+// The stage holds the block's bounds and the plane in flight, in registers
+// (Stage) or copied straight into the free slot (StageAsync), which no
+// thread reads until the barrier after.  On the bare block, src_of maps
+// padded plane pp to interior plane pp - r, null outside the block.
 // Force-inlined, this gives every K1 and K6 instance the registers, stack
 // frame and time of the same loop written out in the kernel; the loop as
 // one function taking the plane's body as a callback kept the registers but
 // ran K1 1.2-1.5x and K6 1.3x slower on an H100 (scripts/kernel_variants.py,
 // the march_in_kernel and march_callback variants).
-template <int R, int SLOT, int VZ, typename RawT, typename St, typename Src>
+template <int R, int SLOT, typename RawT, typename St, typename Src>
 struct Ring {
   static constexpr int SLOTS = 2 * R + 2;
   St& stage;               // the plane being staged
   RawT* sm;                // slot 0 of RHS 0
   const Src& src_of;       // padded plane -> its first staged element of RHS 0
   int64_t vstride;         // elements between RHS in device memory
-  int pz, nc, qs;          // padded row pitch; RHS staged; elements between RHS in the ring
-  int rows_ok, cols_ok;    // staged rows and elements inside the padded block
+  int pz, nc, qs;          // v's row pitch; RHS staged; elements between RHS in the ring
   int x1;                  // end of the x segment
   int base = 0;            // slot of padded plane x (interior x - r)
 
   __device__ __forceinline__ void begin(int x0) {
     for (int j = 0; j <= 2 * R; ++j) {
-      stage.load(src_of(x0 + j), vstride, pz, nc, rows_ok, cols_ok);
-      stage.store(sm + j * SLOT + (VZ - R), qs, nc);
+      stage.load(src_of(x0 + j), vstride, pz, nc, sm + j * SLOT, qs);
+      stage.store(sm + j * SLOT, qs, nc);
     }
     __syncthreads();
   }
+  // the free slot: padded plane x - 1's, read by no thread since the last barrier
+  __device__ __forceinline__ RawT* free_slot() const {
+    return sm + (base + 2 * R + 1 < SLOTS ? base + 2 * R + 1 : base + 2 * R + 1 - SLOTS) * SLOT;
+  }
   __device__ __forceinline__ void prefetch(int x) {
-    if (x + 1 < x1) stage.load(src_of(x + 2 * R + 1), vstride, pz, nc, rows_ok, cols_ok);
+    if (x + 1 < x1)
+      stage.load(src_of(x + 2 * R + 1), vstride, pz, nc, free_slot(), qs);
   }
   // element offset of interior plane x + d - r's slot
   __device__ __forceinline__ int slot(int d) const {
     return (base + d < SLOTS ? base + d : base + d - SLOTS) * SLOT;
   }
   __device__ __forceinline__ void advance(int x) {
-    if (x + 1 < x1) {
-      const int next = base + 2 * R + 1 < SLOTS ? base + 2 * R + 1 : base + 2 * R + 1 - SLOTS;
-      stage.store(sm + next * SLOT + (VZ - R), qs, nc);
-    }
+    if (x + 1 < x1) stage.store(free_slot(), qs, nc);
     __syncthreads();
     base = base + 1 == SLOTS ? 0 : base + 1;
   }

@@ -1,5 +1,6 @@
-// Stencil SpMV for the star/box family: u = v + sum_t c_t * window(v_pad, off_t),
-// for one right-hand side or a batch of B sharing the coefficient fields.
+// Stencil SpMV for the star/box family: u = v + sum_t c_t * window(v, off_t),
+// v zero outside the block, for one right-hand side or a batch of B sharing
+// the coefficient fields.
 //
 // Replaces the TPU kernel src/repro/kernels/stencil_nd/kernel.py:stencil_nd_pallas,
 // both its unbatched body _kernel and its batched body _kernel_batched: the
@@ -35,10 +36,16 @@
 //
 // Tiles, segments and the RHS chunk come from the caller
 // (kernels/stencil_nd/kernel.py:launch_plan); the entry point checks them
-// against the compiled tile.  The kernel reads the r-padded block that
-// core/halo.py produces, so the multi-rank halo exchange feeds it unchanged,
-// and it is right for blocks thinner than a tile in any axis (the overlap
-// schedule's ring slabs, down to 1 x by x Z).
+// against the compiled tile.  The kernel reads v in either of two forms:
+// the r-padded block that core/halo.py produces, so the multi-rank halo
+// exchange feeds it unchanged; or the bare block, whose zero halo the
+// kernel stages itself (stencil_march.cuh), so a one-rank SpMV and the
+// overlap schedule's interior need no padded copy.  One element-wise
+// staging serves both, with the form's origin and bounds passed at run
+// time; bf16 pairs (padded) and 16-B vectors (bare) are compile-time
+// modes (FORM) of the same kernel.  Both forms give the same bits where
+// the padded block's halo is zero.  The kernel is right for blocks thinner than
+// a tile in any axis (the overlap schedule's ring slabs, down to 1 x by x Z).
 #include "stencil_march.cuh"
 
 namespace repro {
@@ -47,13 +54,19 @@ namespace sten {
 // the most RHS one block carries, by radius (the shared-memory ring's budget)
 __host__ __device__ constexpr int max_chunk(int r) { return r == 1 ? 4 : r == 2 ? 2 : 1; }
 
+// How the kernel reads v: element by element (either block, p.bare says
+// which); the r-padded block in bf16 pairs of 4-B loads; the bare block in
+// 16-B vectors copied asynchronously (Z % VZ == 0 and v 16-B aligned)
+enum Form : int { kElems = 0, kPaddedPairs = 1, kBareVec = 2 };
+
 struct Params {
-  const void* vp;                 // (B, bx+2r, by+2r, Z+2r), contiguous
+  const void* vp;                 // (B, bx+2r, by+2r, Z+2r) or bare (B, bx, by, Z), contiguous
   void* u;                        // (B, bx, by, Z), contiguous
   const void* cf[26];             // n_off fields, each (bx, by, Z)
   int nb, bx, by, z;
   int seg_len, ntz;               // planes per segment; z tiles per tile row
   int wide;                       // fields and u 16-B aligned and Z % VZ == 0
+  int bare;                       // vp is the bare block
   int64_t vp_stride, u_stride;    // per-RHS element strides
 };
 
@@ -64,12 +77,16 @@ struct Params {
 constexpr int kMinBlocks1 = 4, kMinBlocksN = 2;
 constexpr int min_blocks(int nb) { return nb == 1 ? kMinBlocks1 : kMinBlocksN; }
 
-template <typename T, typename A, int KIND, int R, int NB, bool PAIR>
+template <typename T, typename A, int KIND, int R, int NB, int FORM>
 __global__ void __launch_bounds__(kThreads, min_blocks(NB)) stencil_nd_kernel(const Params p) {
   using S = Spec<KIND, R>;
   using RawT = typename Raw<T>::type;
   constexpr int VZ = Tile<T>::VZ, TZ = Tile<T>::TZ, P = Tile<T>::P;
-  constexpr int ROWS = kTY + 2 * R, W = TZ + 2 * R;  // staged rows and elements per row
+  constexpr bool VEC = FORM == kBareVec;
+  const bool bare = VEC || (FORM == kElems && p.bare);
+  // staged rows and elements per row: the tile's z range and r either side,
+  // or, for 16-B vectors of the bare block, the whole shared row
+  constexpr int ROWS = kTY + 2 * R, W = VEC ? P : TZ + 2 * R;
   constexpr int SLOTS = 2 * R + 2;
   constexpr int SLOT = ROWS * P;                     // elements of one staged plane
   constexpr int QS = SLOTS * SLOT;                   // elements of one RHS's ring
@@ -82,15 +99,26 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NB)) stencil_nd_kernel(co
   const int tid = threadIdx.x, tz_t = tid % kTZT, ty_t = tid / kTZT;
   const int ty0 = (blockIdx.x / p.ntz) * kTY, tz0 = (blockIdx.x % p.ntz) * TZ;
   const int b0 = blockIdx.z * NB, nc = min(NB, p.nb - b0);
-  const int py = p.by + 2 * R, pz = p.z + 2 * R;
-  const int rows_ok = min(ROWS, py - ty0), cols_ok = min(W, pz - tz0);
+  const int py = bare ? p.by : p.by + 2 * R, pz = bare ? p.z : p.z + 2 * R;  // v's rows, pitch
+  // the stage's bounds (stencil_march.cuh: Stage): bare, (row0, col0) is the
+  // window's origin in v and the block's rows and columns bound it; padded, the
+  // window starts at the tile's corner and the padded block's edge bounds it
+  const int row0 = bare ? ty0 - R : 0, col0 = bare ? tz0 - (W - TZ) / 2 : 0;
+  const int rows_ok = bare ? p.by : min(ROWS, py - ty0), cols_ok = bare ? p.z : min(W, pz - tz0);
   const RawT* vp = static_cast<const RawT*>(p.vp) + b0 * p.vp_stride;
 
-  Stage<RawT, ROWS, W, P, NB, PAIR> stage;           // the plane being staged
-  auto src_of = [&](int pp) { return vp + ((int64_t)pp * py + ty0) * pz + tz0; };
+  // the plane being staged
+  std::conditional_t<VEC, StageAsync<RawT, ROWS, P, NB>,
+                     Stage<RawT, ROWS, W, P, NB, FORM == kPaddedPairs>>
+      stage(rows_ok, cols_ok, row0, col0);
+  auto src_of = [&](int pp) -> const RawT* {         // padded plane pp (interior pp - r)
+    if (!bare) return vp + ((int64_t)pp * py + ty0) * pz + tz0;
+    return (unsigned)(pp - R) < (unsigned)p.bx
+               ? vp + ((int64_t)(pp - R) * py + row0) * pz + col0 : nullptr;
+  };
 
-  Ring<R, SLOT, VZ, RawT, decltype(stage), decltype(src_of)> ring{
-      stage, sm, src_of, p.vp_stride, pz, nc, QS, rows_ok, cols_ok, x1};
+  Ring<R, SLOT, RawT, decltype(stage), decltype(src_of)> ring{
+      stage, sm, src_of, p.vp_stride, pz, nc, QS, x1};
   ring.begin(x0);                                   // planes x0-r .. x0+r
 
   const int y = ty0 + ty_t, zt = tz0 + VZ * tz_t;
@@ -126,11 +154,11 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NB)) stencil_nd_kernel(co
   }
 }
 
-template <typename T, typename A, int KIND, int R, int NB, bool PAIR>
+template <typename T, typename A, int KIND, int R, int NB, int FORM>
 static int launch(Params& p, int nc_max, int segments, cudaStream_t stream) {
   constexpr int QS = (2 * R + 2) * (kTY + 2 * R) * Tile<T>::P;
   const size_t smem = (size_t)nc_max * QS * sizeof(T);
-  auto kern = stencil_nd_kernel<T, A, KIND, R, NB, PAIR>;
+  auto kern = stencil_nd_kernel<T, A, KIND, R, NB, FORM>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -143,32 +171,34 @@ static int launch(Params& p, int nc_max, int segments, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename A, int KIND, int R, bool PAIR>
+template <typename T, typename A, int KIND, int R, int FORM>
 static int dispatch_chunk(Params& p, int chunk, int segments, cudaStream_t s) {
   constexpr int M = max_chunk(R);
   const int nc_max = p.nb < chunk ? p.nb : chunk;
-  if (chunk == 1) return launch<T, A, KIND, R, 1, PAIR>(p, nc_max, segments, s);
+  if (chunk == 1) return launch<T, A, KIND, R, 1, FORM>(p, nc_max, segments, s);
   if constexpr (M > 1) {
-    if (chunk == M) return launch<T, A, KIND, R, M, PAIR>(p, nc_max, segments, s);
+    if (chunk == M) return launch<T, A, KIND, R, M, FORM>(p, nc_max, segments, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, typename A, int KIND, int R>
-static int dispatch_pair(Params& p, bool pair, int chunk, int segments, cudaStream_t s) {
+static int dispatch_form(Params& p, int form, int chunk, int segments, cudaStream_t s) {
   if constexpr (sizeof(T) == 2) {
-    if (pair) return dispatch_chunk<T, A, KIND, R, true>(p, chunk, segments, s);
+    if (form == kPaddedPairs)
+      return dispatch_chunk<T, A, KIND, R, kPaddedPairs>(p, chunk, segments, s);
   }
-  return dispatch_chunk<T, A, KIND, R, false>(p, chunk, segments, s);
+  if (form == kBareVec) return dispatch_chunk<T, A, KIND, R, kBareVec>(p, chunk, segments, s);
+  return dispatch_chunk<T, A, KIND, R, kElems>(p, chunk, segments, s);
 }
 
 template <typename T, typename A>
-static int dispatch_spec(Params& p, int n_off, int r, bool pair, int chunk, int segments,
+static int dispatch_spec(Params& p, int n_off, int r, int form, int chunk, int segments,
                          cudaStream_t s) {
-  if (n_off == 6 && r == 1) return dispatch_pair<T, A, kStar, 1>(p, pair, chunk, segments, s);
-  if (n_off == 12 && r == 2) return dispatch_pair<T, A, kStar, 2>(p, pair, chunk, segments, s);
-  if (n_off == 24 && r == 4) return dispatch_pair<T, A, kStar, 4>(p, pair, chunk, segments, s);
-  if (n_off == 26 && r == 1) return dispatch_pair<T, A, kBox, 1>(p, pair, chunk, segments, s);
+  if (n_off == 6 && r == 1) return dispatch_form<T, A, kStar, 1>(p, form, chunk, segments, s);
+  if (n_off == 12 && r == 2) return dispatch_form<T, A, kStar, 2>(p, form, chunk, segments, s);
+  if (n_off == 24 && r == 4) return dispatch_form<T, A, kStar, 4>(p, form, chunk, segments, s);
+  if (n_off == 26 && r == 1) return dispatch_form<T, A, kBox, 1>(p, form, chunk, segments, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -190,7 +220,7 @@ static bool family_offsets(const int* off, int n_off, int r) {
 }
 
 template <typename T, typename A>
-static int run(const void* vp, const void* cf_ptrs, const int* off, int n_off, int r,
+static int run(const void* vp, bool bare, const void* cf_ptrs, const int* off, int n_off, int r,
                long long nb, long long bx, long long by, long long z, void* u, int ty, int tz,
                int seg_len, int chunk, cudaStream_t s) {
   if (ty != kTY || tz != Tile<T>::TZ) return (int)cudaErrorInvalidValue;
@@ -214,12 +244,16 @@ static int run(const void* vp, const void* cf_ptrs, const int* off, int n_off, i
   p.seg_len = seg_len;
   p.ntz = (int)ntz;
   p.wide = wide;
-  p.vp_stride = (bx + 2 * r) * (by + 2 * r) * (z + 2 * r);
+  p.bare = bare;
+  p.vp_stride = bare ? bx * by * z : (bx + 2 * r) * (by + 2 * r) * (z + 2 * r);
   p.u_stride = bx * by * z;
-  // bf16 rows start 4-B aligned when the padded pitch Z + 2r is even
+  // padded bf16 rows start 4-B aligned when the padded pitch Z + 2r is even;
+  // bare rows start 16-B aligned when Z % VZ == 0
   const bool pair =
       sizeof(T) == 2 && (z + 2 * r) % 2 == 0 && (reinterpret_cast<uintptr_t>(vp) & 3) == 0;
-  return dispatch_spec<T, A>(p, n_off, r, pair, chunk, (int)segments, s);
+  const int form = bare ? (z % Tile<T>::VZ == 0 && aligned16(vp) ? kBareVec : kElems)
+                        : (pair ? kPaddedPairs : kElems);
+  return dispatch_spec<T, A>(p, n_off, r, form, chunk, (int)segments, s);
 }
 
 }  // namespace sten
@@ -227,14 +261,15 @@ static int run(const void* vp, const void* cf_ptrs, const int* off, int n_off, i
 
 extern "C" {
 
-// u[b] = A vp[b] for B r-padded blocks back to back, in one launch (B = 1:
-// one block).  cf_ptrs: host array of n_off device pointers (the fields,
+// u[b] = A vp[b] for B blocks back to back, in one launch (B = 1: one
+// block): r-padded blocks, or bare ones (bare != 0) read as zero outside
+// the block.  cf_ptrs: host array of n_off device pointers (the fields,
 // shared by every RHS); offsets: host int32 array of n_off (dx, dy, dz)
 // triples, which must be a family spec's canonical offsets (star7, star13,
 // star25, box27).  The tile (ty x tz), the x segment length and the RHS
 // chunk come from kernels/stencil_nd/kernel.py:launch_plan.  Returns a
 // cudaError_t code (0 on success).
-int repro_stencil_nd(int storage, int accum, const void* vp, const void* cf_ptrs,
+int repro_stencil_nd(int storage, int accum, const void* vp, int bare, const void* cf_ptrs,
                      const void* offsets, int n_off, int radius, long long nb, long long bx,
                      long long by, long long z, void* u, int ty, int tz, int seg_len, int chunk,
                      void* stream) {
@@ -247,17 +282,17 @@ int repro_stencil_nd(int storage, int accum, const void* vp, const void* cf_ptrs
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (storage == kF32 && accum == kF32)
-    return run<float, float>(vp, cf_ptrs, off, n_off, radius, nb, bx, by, z, u, ty, tz,
-                             seg_len, chunk, s);
+    return run<float, float>(vp, bare != 0, cf_ptrs, off, n_off, radius, nb, bx, by, z, u,
+                             ty, tz, seg_len, chunk, s);
   if (storage == kF32 && accum == kBF16)
-    return run<float, bf16>(vp, cf_ptrs, off, n_off, radius, nb, bx, by, z, u, ty, tz,
-                            seg_len, chunk, s);
+    return run<float, bf16>(vp, bare != 0, cf_ptrs, off, n_off, radius, nb, bx, by, z, u,
+                            ty, tz, seg_len, chunk, s);
   if (storage == kBF16 && accum == kF32)
-    return run<bf16, float>(vp, cf_ptrs, off, n_off, radius, nb, bx, by, z, u, ty, tz,
-                            seg_len, chunk, s);
+    return run<bf16, float>(vp, bare != 0, cf_ptrs, off, n_off, radius, nb, bx, by, z, u,
+                            ty, tz, seg_len, chunk, s);
   if (storage == kBF16 && accum == kBF16)
-    return run<bf16, bf16>(vp, cf_ptrs, off, n_off, radius, nb, bx, by, z, u, ty, tz,
-                           seg_len, chunk, s);
+    return run<bf16, bf16>(vp, bare != 0, cf_ptrs, off, n_off, radius, nb, bx, by, z, u,
+                           ty, tz, seg_len, chunk, s);
   return (int)cudaErrorInvalidValue;
 }
 

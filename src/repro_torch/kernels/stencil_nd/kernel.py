@@ -2,15 +2,20 @@
 
 Counterpart of ``repro/kernels/stencil_nd/kernel.py:stencil_nd_pallas``:
 :func:`stencil_nd` is its unbatched form (body ``_kernel``),
-:func:`stencil_nd_batched` its batched form (body ``_kernel_batched``).  The
-tensor's device picks the path: a CPU tensor takes the plain version
-(:func:`~repro_torch.kernels.stencil_nd.ref.stencil_nd_padded_ref`), a CUDA
-tensor launches the kernel or raises.  Both forms launch one CUDA kernel
-(the unbatched one with B = 1), cut into tiles, x segments and RHS chunks by
-:func:`launch_plan`: today's plan, or a tuning config's x segment and RHS
-chunk (``core/tuning.py:KernelConfig``, checked here before any launch).
-Every plan gives the same bits.  ``launches`` counts kernel launches only,
-one counter per form.
+:func:`stencil_nd_batched` its batched form (body ``_kernel_batched``).  Both
+take the iterate in either of two forms, told apart by its shape against the
+coefficient fields': the r-padded block (the multi-rank halo exchange's) or
+the bare block, whose zero halo the kernel stages itself, so a one-rank
+SpMV makes no padded copy.  Any other shape raises.  The tensor's device
+picks the path: a CPU tensor takes the plain version
+(:func:`~repro_torch.kernels.stencil_nd.ref.stencil_nd_padded_ref` for the
+padded form, :func:`~repro_torch.kernels.stencil_nd.ref.stencil_nd_ref` for
+the bare one), a CUDA tensor launches the kernel or raises.  Both wrappers
+launch one CUDA kernel (the unbatched one with B = 1), cut into tiles, x
+segments and RHS chunks by :func:`launch_plan`: today's plan, or a tuning
+config's x segment and RHS chunk (``core/tuning.py:KernelConfig``, checked
+here before any launch).  Every plan gives the same bits.  ``launches``
+counts kernel launches only, one counter per wrapper.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import torch
 
 from repro_torch.core.stencil import StencilSpec
 from repro_torch.kernels import _build
-from repro_torch.kernels.stencil_nd.ref import stencil_nd_padded_ref
+from repro_torch.kernels.stencil_nd.ref import stencil_nd_padded_ref, stencil_nd_ref
 
 #: kernel launches in this process (CUDA tensors only)
 launches = {"stencil_nd": 0, "stencil_nd_batched": 0}
@@ -131,17 +136,30 @@ def launch_plan(shape: tuple[int, int, int], nb: int, n_off: int, radius: int,
                       smem_bytes=smem)
 
 
+def _form(what: str, vp: torch.Tensor, coeffs: list[torch.Tensor], r: int,
+          nb: int) -> tuple[tuple[int, ...], bool]:
+    """The block's shape (the coefficient fields') and whether ``vp`` is the
+    bare block (else the r-padded one); any other shape raises."""
+    shape = tuple(coeffs[0].shape) if coeffs else ()
+    mesh = tuple(vp.shape[nb:])
+    if len(shape) == 3 and vp.ndim == 3 + nb:
+        if mesh == shape:
+            return shape, True
+        if mesh == tuple(s + 2 * r for s in shape):
+            return shape, False
+    raise ValueError(f"{what} takes {'a batch of ' if nb else ''}3-D blocks, bare {shape} "
+                     f"or padded by r = {r}; got {tuple(vp.shape)}")
+
+
 def _check(what: str, vp: torch.Tensor, coeffs: list[torch.Tensor], offsets, r: int,
-           nb: int) -> tuple[int, ...]:
-    """Validate a CUDA launch's arguments; returns the unpadded block shape."""
+           nb: int) -> tuple[tuple[int, ...], bool]:
+    """Validate a CUDA launch's arguments; returns the block shape and
+    whether ``vp`` is bare."""
     if vp.device.type != "cuda":
         raise ValueError(f"{what} runs on cpu or cuda tensors, got {vp.device}")
-    if vp.ndim != 3 + nb:
-        raise ValueError(f"{what} takes {'a batch of ' if nb else ''}3-D padded blocks, "
-                         f"got shape {tuple(vp.shape)}")
-    shape = tuple(s - 2 * r for s in vp.shape[nb:])
+    shape, bare = _form(what, vp, coeffs, r, nb)
     if min(shape) < 1:
-        raise ValueError(f"padded block {tuple(vp.shape)} is empty at radius {r}")
+        raise ValueError(f"block {tuple(vp.shape)} is empty")
     if len(coeffs) != len(offsets):
         raise ValueError(f"need one coefficient field per offset; got {len(coeffs)} fields "
                          f"and {len(offsets)} offsets")
@@ -158,13 +176,23 @@ def _check(what: str, vp: torch.Tensor, coeffs: list[torch.Tensor], offsets, r: 
     for cf in coeffs:
         if tuple(cf.shape) != shape:
             raise ValueError(f"coefficient field {tuple(cf.shape)} != block {shape}")
-    return shape
+    return shape, bare
 
 
-def _launch(what: str, vp: torch.Tensor, coeffs: list[torch.Tensor], offsets, r: int,
-            accum_dtype: torch.dtype, batched: bool, config) -> torch.Tensor:
-    """Check, plan, allocate ``u`` and launch; B = 1 for the unbatched form."""
-    shape = _check(what, vp, coeffs, offsets, r, int(batched))
+def _apply(what: str, vp: torch.Tensor, coeffs: list[torch.Tensor], offsets, r: int,
+           accum_dtype: torch.dtype, batched: bool, config) -> torch.Tensor:
+    """The plain version on a CPU tensor (``config`` is planned anyway: it
+    is refused on either device), else check, plan, allocate ``u`` and
+    launch; B = 1 for the unbatched form."""
+    if vp.device.type == "cpu":
+        shape, bare = _form(what, vp, coeffs, r, int(batched))
+        if config is not None:
+            launch_plan(shape, vp.shape[0] if batched else 1, len(offsets), r,
+                        vp.element_size(), config)
+        if bare:
+            return stencil_nd_ref(vp, coeffs, offsets, accum_dtype=accum_dtype)
+        return stencil_nd_padded_ref(vp, coeffs, offsets, radius=r, accum_dtype=accum_dtype)
+    shape, bare = _check(what, vp, coeffs, offsets, r, int(batched))
     nb = vp.shape[0] if batched else 1
     if not 1 <= nb <= _build.MAX_BATCH:
         raise ValueError(f"{what} takes 1..{_build.MAX_BATCH} right-hand sides, got {nb}")
@@ -174,7 +202,7 @@ def _launch(what: str, vp: torch.Tensor, coeffs: list[torch.Tensor], offsets, r:
     ptrs = (ctypes.c_uint64 * len(coeffs))(*(c.data_ptr() for c in coeffs))
     offs = (ctypes.c_int * (3 * len(offsets)))(*(o for off in offsets for o in off))
     code = lib.repro_stencil_nd(
-        _build.dtype_code(vp.dtype), _build.dtype_code(accum_dtype), vp.data_ptr(),
+        _build.dtype_code(vp.dtype), _build.dtype_code(accum_dtype), vp.data_ptr(), int(bare),
         ctypes.addressof(ptrs), ctypes.addressof(offs), len(coeffs), r, nb, *shape,
         u.data_ptr(), plan.ty, plan.tz, plan.seg_len, plan.chunk,
         _build.stream_handle(vp.device))
@@ -183,32 +211,21 @@ def _launch(what: str, vp: torch.Tensor, coeffs: list[torch.Tensor], offsets, r:
     return u
 
 
-def _check_config(vp: torch.Tensor, offsets, r: int, nb: int, config) -> None:
-    """On a CPU tensor, plan ``config`` anyway: it is refused on either device."""
-    if config is not None:
-        shape = tuple(s - 2 * r for s in vp.shape[nb:])
-        launch_plan(shape, vp.shape[0] if nb else 1, len(offsets), r, vp.element_size(),
-                    config)
-
-
 def stencil_nd(vp: torch.Tensor, coeffs: list[torch.Tensor],
                offsets: tuple[tuple[int, int, int], ...], *, radius: int,
                accum_dtype: torch.dtype = torch.float32, config=None) -> torch.Tensor:
-    """u = A v on one r-padded block.
+    """u = A v on one block.
 
-    ``vp``: the ``(bx+2r, by+2r, Z+2r)`` iterate with its halo; ``coeffs[i]``
-    the ``(bx, by, Z)`` diagonal that multiplies the ``offsets[i]``-shifted
-    window, ``offsets`` a family spec's (star7, star13, star25, box27) in
-    canonical order.  The unit main diagonal is implicit; products and sums
-    run in ``accum_dtype`` and the result has ``vp``'s dtype.  The kernel is
-    the batched one with B = 1, cut by :func:`launch_plan` under ``config``
-    (None: today's plan).
+    ``vp``: the bare ``(bx, by, Z)`` iterate, zero outside the block, or the
+    ``(bx+2r, by+2r, Z+2r)`` one with its halo; ``coeffs[i]`` the ``(bx, by, Z)`` diagonal that
+    multiplies the ``offsets[i]``-shifted window, ``offsets`` a family
+    spec's (star7, star13, star25, box27) in canonical order.  The unit main
+    diagonal is implicit; products and sums run in ``accum_dtype`` and the
+    result has ``vp``'s dtype.  The bare form equals the padded form on the
+    zero-padded block bit for bit.  The kernel is the batched one with B = 1,
+    cut by :func:`launch_plan` under ``config`` (None: today's plan).
     """
-    if vp.device.type == "cpu":
-        _check_config(vp, offsets, radius, 0, config)
-        return stencil_nd_padded_ref(vp, coeffs, offsets, radius=radius,
-                                     accum_dtype=accum_dtype)
-    return _launch("stencil_nd", vp, coeffs, offsets, radius, accum_dtype, False, config)
+    return _apply("stencil_nd", vp, coeffs, offsets, radius, accum_dtype, False, config)
 
 
 def stencil_nd_batched(vp: torch.Tensor, coeffs: list[torch.Tensor],
@@ -216,14 +233,10 @@ def stencil_nd_batched(vp: torch.Tensor, coeffs: list[torch.Tensor],
                        accum_dtype: torch.dtype = torch.float32, config=None) -> torch.Tensor:
     """u[b] = A v[b] for a batch of B right-hand sides in one launch.
 
-    ``vp``: ``(B, bx+2r, by+2r, Z+2r)``; ``coeffs`` as for :func:`stencil_nd`,
-    shared by every RHS; returns ``(B, bx, by, Z)``.  Each slice equals
-    :func:`stencil_nd` on that slice bit for bit.  B runs from 1 to
-    ``_build.MAX_BATCH`` (65535); the offsets as for :func:`stencil_nd`.
+    ``vp``: ``(B, bx, by, Z)`` bare or ``(B, bx+2r, by+2r, Z+2r)`` padded;
+    ``coeffs`` as for :func:`stencil_nd`, shared by every RHS; returns
+    ``(B, bx, by, Z)``.  Each slice equals :func:`stencil_nd` on that slice
+    bit for bit.  B runs from 1 to ``_build.MAX_BATCH`` (65535); the offsets
+    as for :func:`stencil_nd`.
     """
-    if vp.device.type == "cpu":
-        _check_config(vp, offsets, radius, 1, config)
-        return stencil_nd_padded_ref(vp, coeffs, offsets, radius=radius,
-                                     accum_dtype=accum_dtype)
-    return _launch("stencil_nd_batched", vp, coeffs, offsets, radius, accum_dtype, True,
-                   config)
+    return _apply("stencil_nd_batched", vp, coeffs, offsets, radius, accum_dtype, True, config)

@@ -1,10 +1,12 @@
-"""Wrappers around the stencil kernel: padding, argument order, and the
-drop-in local apply that pairs the kernel with the depth-r halo exchange.
+"""Wrappers around the stencil kernel: argument order, and the drop-in
+local apply that pairs the kernel with the depth-r halo exchange.
 
 Counterpart of ``repro/kernels/stencil_nd/ops.py``.  An iterate with one
 leading axis more than the coefficients is a batch of right-hand sides
-(``nb = v.ndim - coeffs.ndim``, as in the JAX package): only the three mesh
-axes are padded, and the batched kernel runs them all in one launch.
+(``nb = v.ndim - coeffs.ndim``, as in the JAX package), and the batched
+kernel runs them all in one launch.  A zero-Dirichlet apply hands the kernel
+the bare block, whose zero halo it stages itself (the JAX wrapper pads
+first); only an exchanged block, with its neighbours' halo, is padded.
 
 Every apply takes an optional tuning ``config`` (``core/tuning.py:
 KernelConfig``): the kernel's x segment and RHS chunk, and, for the overlap
@@ -20,11 +22,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.stencil import StencilCoeffs, StencilSpec
 from repro_torch.kernels.stencil_nd.kernel import stencil_nd, stencil_nd_batched
-from repro_torch.obs import trace as obs_trace
 
 
 def _spec_order(coeffs: StencilCoeffs, spec: StencilSpec) -> list[torch.Tensor]:
@@ -54,12 +54,6 @@ def _kernel(nb: int):
     return stencil_nd_batched if nb else stencil_nd
 
 
-def _zero_pad(v: torch.Tensor, r: int) -> torch.Tensor:
-    """``v`` with a depth-``r`` zero halo on its three mesh axes."""
-    with obs_trace.span("stencil.pad"):
-        return F.pad(v, (r, r) * 3)
-
-
 def stencil_apply(coeffs: StencilCoeffs, v: torch.Tensor, *,
                   spec: StencilSpec | None = None,
                   accum_dtype: torch.dtype = torch.float32, config=None) -> torch.Tensor:
@@ -67,9 +61,8 @@ def stencil_apply(coeffs: StencilCoeffs, v: torch.Tensor, *,
     _require_unit_diag(coeffs)
     nb = _batch_rank(v, coeffs)
     spec = spec or coeffs.spec
-    r = spec.radius
-    return _kernel(nb)(_zero_pad(v, r), _spec_order(coeffs, spec), spec.offsets,
-                       radius=r, accum_dtype=accum_dtype, config=config)
+    return _kernel(nb)(v.contiguous(), _spec_order(coeffs, spec), spec.offsets,
+                       radius=spec.radius, accum_dtype=accum_dtype, config=config)
 
 
 def ring_patch_apply(exchange, cf_list: list[torch.Tensor], spec: StencilSpec,
@@ -104,8 +97,9 @@ def fused_local_apply(coeffs: StencilCoeffs, v: torch.Tensor, fabric, *, policy,
 
     ``blocking``: the kernel runs once over the assembled halo'd block.
     ``overlap``: the exchange starts first; then either the kernel runs on
-    the zero-padded block (the interior, which waits on no neighbor) and the
-    boundary ring is patched from the exchanged block, or, with
+    the bare block (the interior, which waits on no neighbor; the kernel
+    stages the zero halo, so no padded copy is made) and the boundary ring
+    is patched from the exchanged block, or, with
     ``config.fuse_ring``, one pass runs over the exchanged block
     (:func:`~repro_torch.kernels.stencil_nd.fused.fused_ring_apply`).  All
     forms accumulate the same canonical-order terms, so they agree bitwise.
@@ -119,12 +113,12 @@ def fused_local_apply(coeffs: StencilCoeffs, v: torch.Tensor, fabric, *, policy,
     spec = coeffs.spec
     r = spec.radius
     cf = coeffs.astype(policy.storage)
-    vs = v.to(policy.storage)
+    vs = v.to(policy.storage).contiguous()      # the kernel reads the bare block in place
     launch = _kernel(_batch_rank(vs, cf))
     cf_list = _spec_order(cf, spec)
 
-    def kernel(vp):
-        return launch(vp, cf_list, spec.offsets, radius=r, accum_dtype=policy.compute,
+    def kernel(block):          # bare (the interior) or padded (the assembled halo)
+        return launch(block, cf_list, spec.offsets, radius=r, accum_dtype=policy.compute,
                       config=config)
 
     def patch_ring(exchange, u):
@@ -140,6 +134,6 @@ def fused_local_apply(coeffs: StencilCoeffs, v: torch.Tensor, fabric, *, policy,
     return comm.scheduled_apply(
         cf, vs, fabric, policy=policy, schedule=schedule,
         full_fn=kernel,
-        interior_fn=lambda vv: kernel(_zero_pad(vv, r)),
+        interior_fn=kernel,
         patch_fn=patch_ring,
         fused_fn=fused_fn)

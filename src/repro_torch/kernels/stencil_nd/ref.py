@@ -2,12 +2,13 @@
 
 :func:`stencil_nd_ref` is the counterpart of the JAX package's
 ``kernels/stencil_nd/ref.py:stencil_nd_ref`` (zero-Dirichlet block, ordered
-coefficient list).  :func:`stencil_nd_padded_ref` takes the CUDA kernel's own
-argument layout (the r-padded block, or a batch of them) and repeats its
-arithmetic op for op; :func:`stencil7_dots_padded_ref` does the same for the
-7-point SpMV with its dot epilogue.  The kernel wrappers run these on CPU
-tensors, and the card checks compare the kernels against them (vectors bit
-for bit).
+coefficient list) and the plain version of the CUDA kernel's bare form (the
+block, or a batch of them, with no halo).  :func:`stencil_nd_padded_ref`
+takes the kernel's padded form (the r-padded block, or a batch of them);
+both repeat its arithmetic op for op.  :func:`stencil7_dots_padded_ref`
+does the same for the 7-point SpMV with its dot epilogue.  The kernel
+wrappers run these on CPU tensors, and the card checks compare the kernels
+against them (vectors bit for bit).
 """
 
 from __future__ import annotations
@@ -19,11 +20,14 @@ from repro_torch.core.stencil import _shift_nd
 
 def stencil_nd_ref(v: torch.Tensor, coeffs: list[torch.Tensor], offsets,
                    accum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """coeffs[i] multiplies the offsets[i]-shifted iterate (kernel order)."""
+    """coeffs[i] multiplies the offsets[i]-shifted iterate (kernel order),
+    zero outside the block; leading (batch) axes of ``v`` share the
+    coefficients."""
+    lead = (0,) * (v.ndim - len(offsets[0]))
     vc = v.to(accum_dtype)
     u = vc
     for cf, off in zip(coeffs, offsets):
-        u = u + cf.to(accum_dtype) * _shift_nd(vc, off)
+        u = u + cf.to(accum_dtype) * _shift_nd(vc, lead + tuple(off))
     return u.to(v.dtype)
 
 

@@ -83,6 +83,9 @@ def test_batched_stencil_matches_pallas(specname, storage, accum):
     for i in range(B):       # each slice is the unbatched plain version, bit for bit
         assert_bitwise(ut[i], stencil_nd(to_t(vp[i]), tcf, spec.offsets, radius=r,
                                          accum_dtype=_T[accum]))
+    # the bare batch (no halo) gives the padded batch's bits
+    bare = stencil_nd_batched(to_t(v), tcf, spec.offsets, radius=r, accum_dtype=_T[accum])
+    assert tuple(bare.shape) == (B,) + shape and torch.equal(bare, ut)
     if storage == "bf16":
         assert_bitwise(ut, uj)
         return

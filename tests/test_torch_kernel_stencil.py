@@ -26,7 +26,8 @@ from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.stencil_nd import (  # noqa: E402
     fused_local_apply, stencil_apply, stencil_nd_padded_ref, stencil_nd_ref,
 )
-from repro_torch.kernels.stencil_nd.kernel import stencil_nd  # noqa: E402
+from repro_torch.kernels.stencil_nd import ops as tops  # noqa: E402
+from repro_torch.kernels.stencil_nd.kernel import stencil_nd, stencil_nd_batched  # noqa: E402
 
 _J = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 _T = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -47,17 +48,22 @@ def _inputs(spec, shape, storage, seed=0):
 def test_plain_version_matches_pallas_kernel(specname, shape, dtypes):
     """f32: within 2 ulp of each point's largest term (XLA contracts the
     multiply-adds into FMAs, the kernel and its plain version never do);
-    bf16 storage: bitwise, with bf16 or f32 accumulation."""
+    bf16 storage: bitwise, with bf16 or f32 accumulation.  The bare block
+    (no halo) gives the padded block's bits."""
     storage, accum = dtypes
     spec = jst.get_spec(specname)
     vp, cfs = _inputs(spec, shape, storage)
     uj = stencil_nd_pallas(vp, cfs, spec.offsets, radius=spec.radius, zc=shape[2],
                            accum_dtype=_J[accum])
     reset_launch_counts()
-    ut = stencil_nd(to_t(vp), [to_t(c) for c in cfs], spec.offsets, radius=spec.radius,
-                    accum_dtype=_T[accum])
+    r = spec.radius
+    kw = dict(radius=r, accum_dtype=_T[accum])
+    tcf = [to_t(c) for c in cfs]
+    ut = stencil_nd(to_t(vp), tcf, spec.offsets, **kw)
+    bare = stencil_nd(to_t(vp)[r:-r, r:-r, r:-r].contiguous(), tcf, spec.offsets, **kw)
     assert launch_counts()["stencil_nd"] == 0          # CPU tensors: plain version
     assert ut.dtype == _T[storage] and tuple(ut.shape) == shape
+    assert_same_bits(bare, ut)
     if storage == "bf16":
         assert_bitwise(ut, uj)
         return
@@ -97,8 +103,8 @@ def test_stencil_apply_matches_core_apply(specname):
 @pytest.mark.parametrize("policy", ["f32", "bf16_mixed", "bf16_pure"])
 @pytest.mark.parametrize("specname", ["star7", "star25", "box27"])
 def test_fused_local_apply_schedules_bitwise(specname, policy):
-    """Blocking and overlap reach the kernel on the same padded block on one
-    rank and agree bitwise, for every policy; both equal apply_ref and the
+    """Blocking (the padded block) and overlap (the bare block) agree
+    bitwise on one rank, for every policy; both equal apply_ref and the
     plain halo path (``core.halo.local_apply``, the spmd backend's SpMV)."""
     spec = jst.get_spec(specname)
     cj = jst.random_nonsymmetric(jax.random.PRNGKey(4), (6, 5, 8), spec=spec)
@@ -113,6 +119,90 @@ def test_fused_local_apply_schedules_bitwise(specname, policy):
     assert_bitwise(ub, tst.apply_ref(cfs, vs, policy=pol))
     for sched in (BLOCKING, OVERLAP):
         assert_bitwise(local_apply(cfs, vs, fab, policy=pol, schedule=sched), ub)
+
+
+def assert_same_bits(a: torch.Tensor, b: torch.Tensor) -> None:
+    """Equal bit for bit (signed zeros and NaN payloads too)."""
+    assert a.dtype == b.dtype and a.shape == b.shape
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    assert torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype]))
+
+
+#: a block whose Z is no multiple of 8: the kernel's element-wise staging
+BARE_SHAPE = (6, 7, 13)
+
+
+@pytest.mark.parametrize("nb", [None, 1, 3])
+@pytest.mark.parametrize("storage,accum", [("f32", "f32"), ("bf16", "bf16")])
+@pytest.mark.parametrize("specname", ["star7", "star13", "star25", "box27"])
+def test_bare_form_equals_padded_form(specname, storage, accum, nb):
+    """K1 on the bare block (the wrapper tells it by its shape) equals K1 on
+    its zero-padded copy bit for bit, unbatched (None) and batched, for
+    every family spec."""
+    spec = tst.get_spec(specname)
+    r = spec.radius
+    g = torch.Generator().manual_seed(11)
+    vshape = BARE_SHAPE if nb is None else (nb,) + BARE_SHAPE
+    v = torch.randn(vshape, generator=g).to(_T[storage])
+    cfs = [(0.2 * torch.randn(BARE_SHAPE, generator=g)).to(_T[storage]) for _ in spec.offsets]
+    launch = stencil_nd if nb is None else stencil_nd_batched
+    kw = dict(radius=r, accum_dtype=_T[accum])
+    bare = launch(v, cfs, spec.offsets, **kw)
+    padded = launch(torch.nn.functional.pad(v, (r, r) * 3), cfs, spec.offsets, **kw)
+    assert tuple(bare.shape) == vshape
+    assert_same_bits(bare, padded)
+    if nb is not None:      # each RHS is the unbatched bare form on its slice
+        for i in range(nb):
+            assert_same_bits(bare[i], stencil_nd(v[i], cfs, spec.offsets, **kw))
+
+
+@pytest.mark.parametrize("launch,nb", [(stencil_nd, 0), (stencil_nd_batched, 1)])
+def test_neither_bare_nor_padded_raises(launch, nb):
+    """An iterate that is neither the bare block nor the r-padded one, or
+    has the wrong rank, is refused on the CPU as on the card."""
+    spec = tst.STAR13
+    cfs = [torch.zeros(BARE_SHAPE)] * spec.n_offsets
+    pre = (2,) * nb
+    for bad in [tuple(s + 2 for s in BARE_SHAPE),          # padded by 1, not r = 2
+                (BARE_SHAPE[0] + 4, BARE_SHAPE[1] + 4, BARE_SHAPE[2]),
+                BARE_SHAPE[:2] + (BARE_SHAPE[2] + 1,)]:
+        with pytest.raises(ValueError, match="bare"):
+            launch(torch.zeros(pre + bad), cfs, spec.offsets, radius=2)
+    with pytest.raises(ValueError, match="3-D blocks"):
+        launch(torch.zeros((2,) + pre + BARE_SHAPE), cfs, spec.offsets, radius=2)
+
+
+@pytest.mark.parametrize("nb", [0, 1])
+def test_one_rank_apply_makes_no_padded_copy(monkeypatch, nb):
+    """fused_local_apply on one rank (the overlap schedule, as the solve runs
+    it) hands K1 the bare iterate: no pad runs, and the result is the
+    blocking schedule's over the padded block bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    spec = tst.STAR7
+    cf = tst.random_nonsymmetric(torch.Generator().manual_seed(6), (5, 6, 7), spec=spec)
+    v = torch.randn((3,) * nb + (5, 6, 7), generator=torch.Generator().manual_seed(7))
+    seen = []
+    for name in ("stencil_nd", "stencil_nd_batched"):
+        def spy(block, *a, real=getattr(tops, name), **kw):
+            seen.append(tuple(block.shape))
+            return real(block, *a, **kw)
+
+        monkeypatch.setattr(tops, name, spy)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        u = fused_local_apply(cf, v, FabricAxes(), policy=tprec.F32, schedule=OVERLAP)
+    assert seen == [tuple(v.shape)]
+    pads = [e.name for e in prof.events() if "pad" in e.name]
+    assert pads == []
+    assert_same_bits(u, fused_local_apply(cf, v, FabricAxes(), policy=tprec.F32,
+                                          schedule=BLOCKING))
+    assert seen[1] == tuple(v.shape[:nb]) + (7, 8, 9)
+    # a strided view of the iterate reaches the kernel as a contiguous block
+    vt = v.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert not vt.is_contiguous()
+    assert_same_bits(fused_local_apply(cf, vt, FabricAxes(), policy=tprec.F32,
+                                       schedule=OVERLAP), u)
+    assert_same_bits(stencil_apply(cf, vt), stencil_apply(cf, v))
 
 
 def test_multi_rank_fabric_raises():
