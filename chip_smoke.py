@@ -307,6 +307,29 @@ Phases (one line of output each, JSON where it carries numbers):
    recompute), bytes, roofline terms and footprint beside 13b's measured
    warm step and peak memory.
 
+15. K7, the explicit wave step (``kernels/wave``, ``core/wave.py``).  (a)
+   K7 against its plain version bit for bit, one step from white-noise
+   wavefields with a source, at the wave cell's mesh (755 x 994 x 1000,
+   16-B staging) and at odd shapes (element-wise staging, Z odd, blocks
+   thinner than a tile), and a 30-step shot through ``propagate_shot``
+   fused against plain.  (b) K7's time at the cell's mesh (CUDA events)
+   beside its bound (16 B a point at 3.35 TB/s), the plain version's
+   time, a PyTorch op of the same traffic (``addcmul``: three fields read,
+   one written) as a streaming yardstick, and its registers and spills
+   from the ptxas log (none may spill).  (c) Shots of 20 and 200 steps at
+   the cell's mesh under torch.profiler, each in a fresh process (late in
+   the whole script, a profiler session in this one lost device records):
+   one K7 launch a step and the same other kernels in both; then a 200-step
+   shot here, unprofiled, that launches K7 200 times by the launch
+   counters and nothing else, and
+   whose steps enqueue far faster than the card runs them (no host wait
+   inside the shot).  K7's row of the ``kernels`` line takes its launches
+   from that shot.  (d) K1 bare (star7 bf16, 608 x 608 x 1536) and K6
+   timed and held within 2% of the kernel table, which K7's source leaves
+   unchanged.  Runs alone: ``python3 -c "import sys;
+   sys.path.insert(0, 'src'); import torch, chip_smoke as cs;
+   cs.phase15(torch, 'card'); print(cs.failures)"``.
+
 ``--profile`` adds a torch.profiler trace of a few iterations of each
 measured path (phases 4, 5, 7 and 8b) and of 5 decode steps of 11c:
 device time by kernel and the card's idle share.
@@ -393,6 +416,10 @@ KERNELS = {
     "dot_mixed_batched": (_SRC + "fused_iter.cu", _TPU + "fused_iter/kernel.py:208", "batched"),
     "stencil7_dot": (_SRC + "stencil7_dot.cu", _TPU + "stencil_nd/fused.py:104", "ref_fused"),
 }
+
+#: every launch counter of ``repro_torch.kernels.launch_counts``: the kernels
+#: above and K7 (``wave_leapfrog``), which replaces no TPU kernel (phase 15)
+COUNTERS = (*KERNELS, "wave_leapfrog")
 
 failures: list[str] = []
 err = {k: 0.0 for k in KERNELS}        # max |kernel - plain| over every output checked
@@ -1006,7 +1033,7 @@ def expected_counts(iters: int, batched: bool = False) -> dict:
     2 stencils and 1 of each pass per iteration, 2 more dots at setup, and
     none of the other form or of K6."""
     sfx = "_batched" if batched else ""
-    counts = {k: 0 for k in KERNELS}
+    counts = {k: 0 for k in COUNTERS}
     counts.update({"stencil_nd" + sfx: 2 * iters, "update_q_dots" + sfx: iters,
                    "update_xr_dots" + sfx: iters, "update_p" + sfx: iters,
                    "dot_mixed" + sfx: iters + 2})
@@ -1149,7 +1176,7 @@ def ref_fused_paper_mesh(torch, iters: int = MAIN_ITERS) -> tuple[dict, dict]:
                iterations=int(res.iterations), rel_residual=float(res.rel_residual),
                ms_per_iter=ms, bytes_per_iter=moved, gb_per_s=moved / (ms * 1e-3) / 1e9,
                bound_ms_per_iter=moved / PEAK_BYTES_PER_S * 1e3, launches=counts)
-    want = {k: 0 for k in KERNELS}
+    want = {k: 0 for k in COUNTERS}
     want.update(stencil7_dot=2 * iters, update_xr_dots=iters, update_p=iters)
     check(counts == want, f"solve_ref_fused launch counts {counts} != {want}")
     check(out["iterations"] == iters and math.isfinite(out["rel_residual"])
@@ -1244,7 +1271,7 @@ def slice_counts(path: SlicePath, iters: int, batched: bool = False, dots: bool 
     in the spmd order, so no ``dot_mixed`` ran."""
     k1, k5, passes = path.launches(iters)
     sfx = "_batched" if batched else ""
-    counts = {k: 0 for k in KERNELS}
+    counts = {k: 0 for k in COUNTERS}
     counts.update({"stencil_nd" + sfx: k1, "dot_mixed" + sfx: k5 if dots else 0})
     for name in ("update_q_dots", "update_xr_dots", "update_p"):
         counts[name + sfx] = passes
@@ -4156,6 +4183,212 @@ def phase14(torch, smi: str, full13: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: K7, the explicit wave step
+# ---------------------------------------------------------------------------
+
+WAVE_MESH = (755, 994, 1000)   # the rtm_star25.shots cell's grid
+#: K7's odd shapes: Z odd (element-wise staging), and blocks thinner than a tile
+WAVE_ODD = [(61, 47, 37), (9, 5, 3), (3, 20, 131)]
+WAVE_STEPS = 200
+#: the profiled shots' steps (15c), each profiled in a process of its own
+WAVE_PROFILED_STEPS = (20, WAVE_STEPS)
+WAVE_KERNEL = "wave_leapfrog_kernel"
+#: K1 bare (star7 bf16 at PAPER_MESH) in the kernel table (K6's: ``K6_TABLE_MS``)
+K1_BARE_TABLE_MS = 3.47
+#: 15d's band around the table's times: K7's source leaves K1 and K6 unchanged
+K1_K6_TIME_TOL = 0.02
+
+
+def wave_fields(torch, shape, seed: int):
+    """u, u_prev (white noise) and c (a medium whose velocity grows with depth) on the card."""
+    from repro_torch.core import wave
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u, w = (torch.randn(shape, generator=gen, device="cuda") for _ in range(2))
+    c = wave.WaveModel.from_velocity(
+        wave.gradient_velocity(shape, seed=seed, device="cuda"), dt=8e-4, h=10.0).c
+    return u, w, c
+
+
+def wave_profiled_shot_here(torch, steps: int) -> dict:
+    """One shot of ``steps`` at the cell's mesh under torch.profiler, in this
+    process: its K7 device records, K7's launch counter, and the other
+    kernels' names (no copy or set, and no span's range on the device)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import wave
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    model = wave.WaveModel.from_velocity(
+        wave.gradient_velocity(WAVE_MESH, seed=17, device="cuda"), dt=8e-4, h=10.0)
+    src, ricker = (WAVE_MESH[0] // 2, WAVE_MESH[1] // 2, 10), wave.Ricker(10.0, 0.1)
+    wave.propagate_shot(model, src, ricker, 2)                  # warm: plan, allocator
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res = wave.propagate_shot(model, src, ricker, steps)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)
+             and not e.name.startswith(("Memcpy", "Memset", "wave."))]
+    return dict(steps=steps, k7=sum(WAVE_KERNEL in nm for nm in names),
+                counter=launch_counts()["wave_leapfrog"], failed=res.failed,
+                others=sorted(nm for nm in names if WAVE_KERNEL not in nm))
+
+
+def wave_profiled_shot(steps: int) -> dict:
+    """:func:`wave_profiled_shot_here` in a fresh process, as the benchmark's
+    traced run profiles: late in the whole script, a profiler session in
+    this process kept some or none of a shot's device records (155 of 200
+    K7 launches in one run, 0 of 20 in another)."""
+    code = ("import json, sys; sys.path.insert(0, 'src'); import torch, chip_smoke as cs; "
+            f"print('WAVE_PROFILED', json.dumps(cs.wave_profiled_shot_here(torch, {int(steps)})))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        if line.startswith("WAVE_PROFILED "):
+            return json.loads(line.split(" ", 1)[1])
+    return dict(steps=steps, error=f"exit {proc.returncode}: {proc.stderr[-1500:]}")
+
+
+def phase15(torch, smi: str) -> dict:
+    """K7 against its plain version, its time, the shot's launches, and K1
+    and K6 beside the table (see the module doc, phase 15)."""
+    from repro_torch.core import stencil, wave
+    from repro_torch.kernels import _build, launch_counts, reset_launch_counts
+    from repro_torch.kernels.stencil_nd.fused import stencil7_dots_padded
+    from repro_torch.kernels.stencil_nd.kernel import stencil_nd
+    from repro_torch.kernels.wave import kernel as wk
+    from repro_torch.kernels.wave.ref import wave_leapfrog_ref
+    from repro_torch.obs import trace
+
+    t0 = time.perf_counter()
+    out: dict = {}
+    weights = wave.step_weights()
+    sample = torch.tensor([0.25], device="cuda")
+
+    # -- 15a: bit for bit ------------------------------------------------------
+    rows = []
+    for shape in [WAVE_MESH, *WAVE_ODD]:
+        u, w, c = wave_fields(torch, shape, seed=15)
+        for src in [tuple(n // 2 for n in shape), (0, shape[1] - 1, min(2, shape[2] - 1))]:
+            s = wave.flat_index(shape, src)
+            want = wave_leapfrog_ref(u, w, c, weights, s, sample[0])
+            got = wk.wave_leapfrog(u, w.clone(), c, weights=weights, src_index=s, src=sample)
+            same = bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))
+            rows.append(dict(shape=list(shape), source=list(src), equal=same,
+                             max_abs=float((got - want).abs().max())))
+            check(same, f"K7 {shape} source {src}: not bitwise its plain version")
+            del got, want
+        del u, w, c
+        torch.cuda.empty_cache()
+    model = wave.WaveModel.from_velocity(
+        wave.gradient_velocity(WAVE_ODD[0], seed=4, device="cuda"), dt=8e-4, h=10.0)
+    ricker = wave.Ricker(10.0, 0.1)
+    a = wave.propagate_shot(model, (30, 23, 10), ricker, 30, backend="fused").u
+    b = wave.propagate_shot(model, (30, 23, 10), ricker, 30, backend="plain").u
+    shot_same = bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+    check(shot_same and float(a.abs().max()) > 0, "K7: a 30-step shot fused != plain")
+    out["bitwise"] = dict(steps=rows, shot_30_equal=shot_same)
+    emit(dict(phase="wave_bitwise", card=smi, **out["bitwise"]))
+
+    # -- 15b: K7's time at the cell's mesh, its registers --------------------
+    u, w, c = wave_fields(torch, WAVE_MESH, seed=16)
+    src = (WAVE_MESH[0] // 2, WAVE_MESH[1] // 2, 10)
+    s = wave.flat_index(WAVE_MESH, src)
+    n = math.prod(WAVE_MESH)
+    moved = 4 * 4 * n
+    rec = dict(shape=list(WAVE_MESH), bytes=moved, flops=52 * n,
+               ms=cuda_ms(torch, lambda: wk.wave_leapfrog(u, w, c, weights=weights,
+                                                          src_index=s, src=sample)),
+               plain_ms=cuda_ms(torch, lambda: wave_leapfrog_ref(u, w, c, weights, s,
+                                                                 sample[0]), n=3, warmup=1))
+    # a yardstick of the same traffic, no kernel of the port: one PyTorch op that
+    # reads three fields and writes one (c * u + u_prev into a fourth)
+    out4 = torch.empty_like(u)
+    rec["stream_yardstick_ms"] = cuda_ms(torch, lambda: torch.addcmul(w, u, c, out=out4))
+    del out4
+    rec["bound_ms"], rec["bound_by"] = bound(moved, 52 * n)
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    ptxas = ptxas_summary(_build.library_path().with_suffix(".log").read_text())
+    rec["ptxas"] = {k: v for k, v in ptxas.items() if WAVE_KERNEL in k}
+    check(len(rec["ptxas"]) == 2 and all(v.get("spill_stores") == 0 and v.get("spill_loads") == 0
+                                         for v in rec["ptxas"].values()),
+          f"K7's two instances spill or are missing from the ptxas log: {rec['ptxas']}")
+    out["time"] = rec
+    emit(dict(phase="wave_kernel_time", card=smi, **rec))
+    del u, w, c
+    torch.cuda.empty_cache()
+
+    # -- 15c: a shot at the cell's mesh: launches, and no wait inside --------
+    profiled = {}
+    for steps in WAVE_PROFILED_STEPS:
+        profiled[steps] = wave_profiled_shot(steps)
+        rec = profiled[steps]
+        check(rec.get("k7") == steps and rec.get("counter") == steps and not rec.get("failed"),
+              f"a profiled {steps}-step shot: {rec}")
+    others = {k: v.get("others") for k, v in profiled.items()}
+    check(others[WAVE_PROFILED_STEPS[0]] == others[WAVE_PROFILED_STEPS[1]],
+          f"other kernels grow with the steps: {others}")
+    model = wave.WaveModel.from_velocity(
+        wave.gradient_velocity(WAVE_MESH, seed=17, device="cuda"), dt=8e-4, h=10.0)
+    wave.propagate_shot(model, src, ricker, 2)                  # warm: plan, allocator
+    trace.reset()
+    trace.enable()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    res = wave.propagate_shot(model, src, ricker, WAVE_STEPS)
+    wall = time.perf_counter() - t1
+    trace.disable()
+    launches = launch_counts()
+    check(launches == {**{k: 0 for k in COUNTERS}, "wave_leapfrog": WAVE_STEPS},
+          f"a {WAVE_STEPS}-step shot's launch counts: {launches}")
+    ev = trace.events()
+    trace.reset()
+    enqueue = sum(e["dur_us"] for e in ev if e["name"] == "wave.step") * 1e-3
+    wait = sum(e["dur_us"] for e in ev if e["name"] == "wave.flag_wait") * 1e-3
+    out["shot"] = dict(shape=list(WAVE_MESH), steps=WAVE_STEPS, wall_s=wall,
+                       launches=launches["wave_leapfrog"],
+                       ms_per_step=wall / WAVE_STEPS * 1e3, steps_enqueue_ms=enqueue,
+                       flag_wait_ms=wait, other_kernels=others[WAVE_PROFILED_STEPS[1]],
+                       peak_abs=float(res.u.abs().max()), failed=res.failed)
+    check(enqueue < 0.25 * wall * 1e3 and wait > 0.5 * wall * 1e3,
+          f"the shot's steps took {enqueue:.1f} ms to enqueue and it waited {wait:.1f} ms "
+          f"of {wall * 1e3:.1f}: a host wait inside the shot?")
+    emit(dict(phase="wave_shot", card=smi, **out["shot"]))
+    del model, res
+    torch.cuda.empty_cache()
+
+    # -- 15d: K1 bare and K6 at the paper mesh, beside the kernel table -------
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dt, spec = torch.bfloat16, stencil.STAR7
+    vp = torch.randn(tuple(x + 2 for x in PAPER_MESH), generator=gen, device="cuda").to(dt)
+    cfs = [(0.1 * torch.randn(PAPER_MESH, generator=gen, device="cuda")).to(dt)
+           for _ in spec.offsets]
+    bare = vp[1:-1, 1:-1, 1:-1].contiguous()
+    wv = torch.randn(PAPER_MESH, generator=gen, device="cuda").to(dt)
+    table = dict(stencil_nd_bare=(K1_BARE_TABLE_MS, lambda: stencil_nd(
+                     bare, cfs, spec.offsets, radius=1, accum_dtype=dt)),
+                 stencil7_dot=(K6_TABLE_MS["stencil7_dot"], lambda: stencil7_dots_padded(
+                     vp, wv, cfs, two_dots=False)),
+                 stencil7_two_dots=(K6_TABLE_MS["stencil7_two_dots"],
+                                    lambda: stencil7_dots_padded(vp, None, cfs, two_dots=True)))
+    out["k1_k6"] = {k: dict(ms=cuda_ms(torch, fn), table_ms=ms) for k, (ms, fn) in table.items()}
+    for k, v in out["k1_k6"].items():
+        check(abs(v["ms"] / v["table_ms"] - 1.0) <= K1_K6_TIME_TOL,
+              f"{k}: {v['ms']:.3f} ms, the kernel table's {v['table_ms']} ms +- "
+              f"{K1_K6_TIME_TOL:.0%}")
+    emit(dict(phase="wave_k1_k6", card=smi, shape=list(PAPER_MESH), kernels=out["k1_k6"]))
+    del vp, cfs, bare, wv
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    emit(dict(phase="wave_clock", card=smi, seconds=out["seconds"]))
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4356,6 +4589,9 @@ def main(argv=None) -> int:
     # -- phase 14: training across four ranks, and the dry-run beside the card --
     record["train_ranks"] = phase14(torch, smi, record["train"].get("full", {}))
 
+    # -- phase 15: K7, the explicit wave step --------------------------------------
+    record["wave"] = phase15(torch, smi)
+
     # -- the kernels line ------------------------------------------------------
     path_counts = {"paper_mesh": counts, "batched": counts5, "ref_fused": counts7}
     all_times = {**times["bf16"], **times["batched"]}
@@ -4367,6 +4603,14 @@ def main(argv=None) -> int:
                             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                             bound_by=t["bound_by"], library_ms=t["library_ms"]))
         check(kernels[-1]["launches"] > 0, f"{name}: no launch on its path ({path})")
+    k7 = record["wave"]["time"]
+    kernels.append(dict(name="wave_leapfrog", route="cuda", source=_SRC + "wave_leapfrog.cu",
+                        replaces=None, launches=record["wave"]["shot"]["launches"],
+                        max_abs_err=max(r["max_abs"] for r in record["wave"]["bitwise"]["steps"]),
+                        ms=k7["ms"], plain_ms=k7["plain_ms"], bound_ms=k7["bound_ms"],
+                        bound_by=k7["bound_by"], library_ms=None,
+                        stream_yardstick_ms=k7["stream_yardstick_ms"]))
+    check(kernels[-1]["launches"] > 0, "wave_leapfrog: no launch on its path (wave_shot)")
     record["kernels"] = kernels
     record["failures"] = failures
     record["seconds"] = time.perf_counter() - t_start

@@ -1,10 +1,13 @@
-"""Seismic-RTM stencil cells: the 25-point star workload.
+"""Seismic-RTM stencil cells: the 25-point star through the solver stack.
 
-Models the follow-on work the paper's §VII points toward: Jacquelin,
-Araya-Polo & Meng, *Massively scalable stencil algorithm* (the 25-point
-star — 8th-order finite differences, radius 4 per axis — that dominates
-seismic reverse-time migration), run through this repo's BiCGStab stack as
-an implicit-timestep solve (``stencil.high_order_star``).
+The 25-point star (8th-order finite differences, radius 4 per axis) is the
+stencil of the follow-on work the paper's §VII points toward: Jacquelin,
+Araya-Polo & Meng, *Massively scalable stencil algorithm*, whose workload is
+explicit time stepping of the acoustic wave equation, with no solve; the
+port runs that workload in ``core/wave.py``.  These cells are the repo's own
+construction instead: the star as an implicit-timestep system ``I - theta
+L_8`` (``stencil.high_order_star``, its dominance chosen here) solved with
+this repo's BiCGStab stack.
 
 The meshes mirror the scaling ladder of that paper's experiments at sizes
 this repo's dry-run machinery can lower: a smoke cell, a single-chip-class

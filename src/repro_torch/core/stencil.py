@@ -380,9 +380,14 @@ _FD2_WEIGHTS = {
 
 def high_order_star(shape: tuple[int, ...], radius: int = 4, dtype=torch.float32,
                     *, dominance: float = 1.25, device) -> StencilCoeffs:
-    """Seismic high-order star operator ``I - theta * Laplacian_2r``, Jacobi
+    """High-order star operator ``I - theta * Laplacian_2r``, Jacobi
     normalized, with ``theta`` set so the off-diagonal row sum is
-    ``1/dominance``, on ``device``."""
+    ``1/dominance``, on ``device``.
+
+    An implicit-step system of the repo's own construction (the dominance
+    and the solve are not the source's): the seismic source workload,
+    Jacquelin, Araya-Polo and Meng's explicit 25-point time stepping of the
+    acoustic wave equation, is ``core/wave.py``."""
     if radius not in _FD2_WEIGHTS:
         raise ValueError(f"radius must be in {sorted(_FD2_WEIGHTS)}, got {radius}")
     spec = StencilSpec("star", radius, len(shape))

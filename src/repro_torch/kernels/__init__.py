@@ -12,8 +12,10 @@ def _counters() -> tuple[dict[str, int], ...]:
     from repro_torch.kernels.fused_iter import kernel as fused_iter_kernel
     from repro_torch.kernels.stencil_nd import fused as stencil7_dot_kernel
     from repro_torch.kernels.stencil_nd import kernel as stencil_kernel
+    from repro_torch.kernels.wave import kernel as wave_kernel
 
-    return stencil_kernel.launches, fused_iter_kernel.launches, stencil7_dot_kernel.launches
+    return (stencil_kernel.launches, fused_iter_kernel.launches, stencil7_dot_kernel.launches,
+            wave_kernel.launches)
 
 
 def launch_counts() -> dict[str, int]:
