@@ -9,7 +9,11 @@ Phases (one line of output each, JSON where it carries numbers):
 1. the card's name and power limit (``nvidia-smi``), then the kernel build
    (``nvcc`` per source, into ``build/repro_torch_kernels/``) and its seconds,
    and each kernel's registers and spills from ``ptxas``: the group passes
-   (K2/K2b, K4/K4b) and every instance of K6 must not spill;
+   (K2/K2b, K4/K4b), every instance of K6 and the 16 instances of K1's axpy
+   form must not spill; with ``--sass-against CHECKOUT`` (a parent's
+   checkout), every K1, K6 and K7 instance both builds have must compile to
+   the same SASS (``cuobjdump -sass``; the instances only this build has
+   are listed);
 2. every kernel against its plain version on the card, at 256x256x256,
    at the default cell's 48x48x32 and at the ragged 37x29x17, in f32 and
    bf16: the stencil (K1) for star7, box27 and star25; the batched stencil
@@ -30,7 +34,16 @@ Phases (one line of output each, JSON where it carries numbers):
    star7, star13, star25 and box27 in f32 and bf16 at every accumulation,
    unbatched (also off a 16-B boundary) and batched at B = 1 and 4, each
    against the plain version and against the padded launch on its
-   zero-padded copy, bit for bit.  Then at each path's own shapes: K1-K5 and K6 at
+   zero-padded copy, bit for bit; then K1's axpy form (``stencil_nd_axpy``:
+   y = A (r - st(alpha) s), its input formed as it is staged, BiCGStab's
+   second SpMV on one rank) against K1's bare form on the plain ``q_in``
+   and against the plain version, bit for bit, for every family spec, dtype
+   and accumulation at 256^3 and 37x29x24, and star7 bf16 at 608x608x1536
+   (phase 4's mesh, whose time the kernels line gives), 600x595x1536 and
+   600^3, timed there beside K1 on q and beside the ``q_in`` pass plus K1
+   it replaces; at 37x29x17 the fused operator has no ``apply_axpy``,
+   and there and on operands off a 16-B boundary the wrapper raises and
+   launches nothing.  Then at each path's own shapes: K1-K5 and K6 at
    608x608x1536 in bf16 (K1 with bf16 accumulation on the bare block, as
    the one-rank solve runs it, beside the padded launch and the zero pad
    plus the padded launch it replaces; K6 with f32, its times within 5% of
@@ -60,8 +73,8 @@ Phases (one line of output each, JSON where it carries numbers):
 4. the paper's mesh (``cs1_paper``, 608x608x1536, star7 convdiff,
    ``bf16_mixed``) through ``--backend fused`` for 30 iterations at tol 0:
    ms/iter, GB/s against the bytes an iteration must move, finite residuals
-   below 1, and launch counts of exactly 2 stencil + 1 of each fused pass
-   per iteration plus 2 dot_mixed at setup;
+   below 1, and launch counts of exactly 1 stencil, 1 of its axpy form and
+   1 of each fused pass per iteration plus 2 dot_mixed at setup;
 5. the batched main path: ``joule_600`` (608^3) with ``--nrhs 4``,
    ``bf16_mixed``, ``--backend fused``, 30 iterations at tol 0: ms per
    iteration and per RHS-iteration, GB/s against the batched bytes model
@@ -130,7 +143,9 @@ Phases (one line of output each, JSON where it carries numbers):
    names the card and its power limit, ``events.jsonl`` holds one solve
    event of 30 iterations and a ``collectives`` event of 91 AllReduces
    (1 + 3 x 30) and 0 ppermutes, ``trace.json`` holds the solve, operator
-   and halo spans, and residuals and launch counts equal phase 4's; its
+   and halo spans and no ``bicgstab.q_in`` (one rank forms no q), the
+   manifest's ``kernels.stencil_nd_axpy.launches`` reads 30, and residuals
+   and launch counts equal phase 4's; its
    ms/iter is recorded beside phase 4's.  (c) ``--profile`` for 5
    iterations: ``<run_dir>/torch_profile`` holds a trace with the stencil
    kernel's device events.  (d) ``perfmodel.iteration_time_model`` for
@@ -381,6 +396,21 @@ BARE_BATCHES = (1, 4)
 K6_TABLE_MS = {"stencil7_dot": 3.91, "stencil7_two_dots": 3.33}
 K6_TABLE_MARGIN = 0.05
 FAMILY_MESH = (256, 256, 256)   # box27 and star25 timed here, off the measured paths
+#: K1's axpy form (y = A (r - st(alpha) s), BiCGStab's second SpMV, its input
+#: formed as the kernel stages it): every family spec, dtype and accumulation
+#: at AXPY_SHAPES, and the solve's form (star7, bf16) at the meshes the
+#: solves run (phase 4's first, whose time the kernels line gives), each bit
+#: for bit K1's bare form on the plain q_in; at AXPY_ODD (Z not a whole
+#: number of 16-B vectors) the operator keeps q_in and the wrapper raises
+AXPY_SHAPES = [(256, 256, 256), (37, 29, 24)]
+AXPY_MESHES = [PAPER_MESH, (600, 595, 1536), (600, 600, 600)]
+AXPY_ODD = (37, 29, 17)
+#: the axpy instances in the ptxas log: stencil_nd_kernel<T, A, KIND, R, NB = 1,
+#: FORM = kBareAxpy = 3>, 2 storage x 2 accumulation dtypes x 4 family specs
+AXPY_INSTANCE, AXPY_INSTANCES = re.compile(r"stencil_nd_kernel\w*Li1ELi3EE+v"), 16
+#: the x-march kernels whose every instance must compile to the SASS of the
+#: checkout that ``--sass-against`` names (K1, K6, K7)
+SASS_KERNELS = ("stencil_nd_kernel", "stencil7_dot_kernel", "wave_leapfrog_kernel")
 #: the redesigned kernels' times before their redesign, as PERF.md's kernel table
 #: gives them in brackets (NVIDIA H100 80GB HBM3 at 700 W), printed beside the new ones
 EARLIER_MS = {"stencil_nd": 6.99, "stencil_nd_batched": 7.72, "dot_mixed": 1.98,
@@ -418,11 +448,13 @@ KERNELS = {
 }
 
 #: every launch counter of ``repro_torch.kernels.launch_counts``: the kernels
-#: above and K7 (``wave_leapfrog``), which replaces no TPU kernel (phase 15)
-COUNTERS = (*KERNELS, "wave_leapfrog")
+#: above, K1's form that stages its own input (``stencil_nd_axpy``, phase 2),
+#: and K7 (``wave_leapfrog``), which replaces no TPU kernel (phase 15)
+COUNTERS = (*KERNELS, "stencil_nd_axpy", "wave_leapfrog")
 
 failures: list[str] = []
-err = {k: 0.0 for k in KERNELS}        # max |kernel - plain| over every output checked
+#: max |kernel - plain| over every output checked
+err = {k: 0.0 for k in (*KERNELS, "stencil_nd_axpy")}
 dot_rel = {k: 0.0 for k in KERNELS}    # max |dot diff| / sum |a_i b_i|
 dot_signal: dict[str, float] = {}   # min |plain dot| / tolerance, per kernel with dots
 
@@ -730,6 +762,131 @@ def check_bare_stencil(torch) -> None:
     torch.cuda.empty_cache()
 
 
+def check_axpy_stencil(torch) -> dict:
+    """K1's axpy form (``stencil_nd_axpy``: y = A (r - st(alpha) s), its input
+    formed as the kernel stages it) against K1's bare form on the plain
+    ``q_in`` and against the plain version, bit for bit: every family spec,
+    f32 and bf16 at every accumulation, at AXPY_SHAPES; the solve's form
+    (star7, bf16 accumulation) at AXPY_MESHES, timed there beside K1 on q
+    and beside the q_in pass plus K1 that it replaces.  At AXPY_ODD the
+    fused operator has no ``apply_axpy``; there, and on an operand off a
+    16-B boundary, the wrapper raises and launches nothing."""
+    from repro_torch.core import operator, precision, stencil
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.stencil_nd.kernel import stencil_nd, stencil_nd_axpy
+    from repro_torch.kernels.stencil_nd.ref import stencil_nd_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    alpha = lambda: (0.5 + torch.rand((), generator=gen, device=dev)).float()
+
+    def case(shape, dtype, acc, sname, label, timed=False):
+        spec = stencil.get_spec(sname)
+        rnd = lambda: torch.randn(shape, generator=gen, device=dev).to(dtype)
+        r, s, a = rnd(), rnd(), alpha()
+        cfs = [(0.2 * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+               for _ in spec.offsets]
+        kw = dict(radius=spec.radius, accum_dtype=acc)
+        q_in = lambda: r - a.to(dtype) * s
+        axpy = lambda: stencil_nd_axpy(a, r, s, cfs, spec.offsets, **kw)
+        got, q = axpy(), q_in()
+        same_bits("stencil_nd_axpy", [got], [stencil_nd(q, cfs, spec.offsets, **kw)], label,
+                  against="K1's bare form on the plain q_in")
+        vec_eq("stencil_nd_axpy", got, stencil_nd_ref(q, cfs, spec.offsets, accum_dtype=acc),
+               label)
+        row = None
+        if timed:
+            n = math.prod(shape)
+            row = dict(shape=list(shape), ms=cuda_ms(torch, axpy),
+                       k1_on_q_ms=cuda_ms(torch, lambda: stencil_nd(q, cfs, spec.offsets, **kw)),
+                       q_in_then_k1_ms=cuda_ms(torch, lambda: stencil_nd(q_in(), cfs,
+                                                                         spec.offsets, **kw)),
+                       bytes=nbytes(r, s, *cfs) + nbytes(r))
+            row["bound_ms"], row["bound_by"] = bound(row["bytes"],
+                                                     2 * spec.n_offsets * n + 2 * n)
+        del r, s, cfs, got, q
+        torch.cuda.empty_cache()
+        return row
+
+    for shape in AXPY_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for acc in (torch.float32, torch.bfloat16):
+                for sname in ("star7", "star13", "star25", "box27"):
+                    case(shape, dtype, acc, sname,
+                         f"axpy {sname} {'x'.join(map(str, shape))} "
+                         f"{str(dtype).split('.')[-1]} accum {str(acc).split('.')[-1]}")
+    times = [case(m, torch.bfloat16, torch.bfloat16, "star7",
+                  f"axpy star7 {'x'.join(map(str, m))} bfloat16 accum bfloat16", timed=True)
+             for m in AXPY_MESHES]
+
+    # Z not a whole number of 16-B vectors, and operands off a 16-B boundary
+    spec, dt = stencil.STAR7, torch.bfloat16
+    cf = stencil.convection_diffusion(AXPY_ODD, device="cuda")
+    op = operator.fused_operator(cf, policy=precision.get_policy("bf16_mixed"))
+    check(op.apply_axpy is None, f"axpy: the operator at {AXPY_ODD} has apply_axpy")
+    refused = {}
+    for label, shape, skew in (("odd Z", AXPY_ODD, 0), ("off 16-B", AXPY_SHAPES[1], 1)):
+        n = math.prod(shape)
+        r, s = (torch.randn(n + 1, generator=gen, device=dev).to(dt)[skew:skew + n].view(shape)
+                for _ in range(2))
+        cfs = [(0.2 * torch.randn(shape, generator=gen, device=dev)).to(dt)
+               for _ in spec.offsets]
+        reset_launch_counts()
+        try:
+            stencil_nd_axpy(alpha(), r, s, cfs, spec.offsets, radius=1, accum_dtype=dt)
+            refused[label] = None
+        except ValueError as e:
+            refused[label] = str(e)
+        counts = {k: v for k, v in launch_counts().items() if v}
+        check(refused[label] is not None and not counts,
+              f"axpy, {label}: not refused ({refused[label]!r}) or launched {counts}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return dict(meshes=times, refused=refused)
+
+
+def sass_functions(lib: Path) -> dict[str, str]:
+    """Each kernel's SASS in a built library (``cuobjdump -sass``), by
+    mangled name: its instruction and encoding lines as printed."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=600, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+        elif name is not None and line.strip().startswith("/*"):
+            out[name].append(line.strip())
+    return {k: "\n".join(v) for k, v in out.items()}
+
+
+def compare_sass(lib: Path, other_root: Path) -> dict:
+    """The x-march kernels (SASS_KERNELS) of this build against the same
+    functions built from the checkout at ``other_root``: every function
+    both builds have must have the same SASS, and none may be missing here;
+    those only this build has are listed."""
+    import os
+
+    built = subprocess.run(
+        [sys.executable, "-c", "from repro_torch.kernels import _build; print(_build.build())"],
+        cwd=other_root, env={**os.environ, "PYTHONPATH": str(other_root / "src")},
+        capture_output=True, text=True, timeout=900, check=True).stdout.strip().splitlines()[-1]
+    pick = lambda fns: {k: v for k, v in fns.items() if any(s in k for s in SASS_KERNELS)}
+    mine, theirs = pick(sass_functions(lib)), pick(sass_functions(Path(built)))
+    both = sorted(set(mine) & set(theirs))
+    differ = [k for k in both if mine[k] != theirs[k]]
+    out = dict(against=str(other_root), same=len(both) - len(differ), of=len(both),
+               differ=differ, only_here=sorted(set(mine) - set(theirs)),
+               only_there=sorted(set(theirs) - set(mine)))
+    check(not differ and not out["only_there"],
+          f"SASS: {len(differ)} of {len(both)} x-march functions differ from {other_root}, "
+          f"{len(out['only_there'])} missing here")
+    return out
+
 def check_kernels(torch) -> None:
     """Every kernel vs its plain version at CHECK_SHAPES, and the stencil at
     the ring slabs of SLAB_SHAPES."""
@@ -951,11 +1108,14 @@ def iteration_bytes(shape, itemsize: int, radius: int = 1, n_off: int = 6, nrhs:
     sides: each op's inputs read once and its outputs written once, with the
     batched SpMV reading each coefficient field once for all of them.  The
     SpMV reads the bare v (the kernel stages its zero halo; no padded copy
-    on one rank), so the stencil's ``radius`` does not move the count."""
+    on one rank), so the stencil's ``radius`` does not move the count.  One
+    RHS: the second SpMV reads r and s and forms q = r - alpha s itself (K1's
+    axpy form); a batch forms q first (``q_in``: r, s in, q out)."""
     n = math.prod(shape)
     spmv = nrhs * n + n_off * n + nrhs * n      # read v and the fields, write u
-    fused = nrhs * (3 + 4 + 7 + 4 + 2) * n      # q_in, update_q_dots, update_xr_dots,
-    return (2 * spmv + fused) * itemsize        # update_p, dot_mixed
+    q_in = n if nrhs == 1 else 3 * nrhs * n     # s read by the SpMV, or the q_in pass
+    fused = nrhs * (4 + 7 + 4 + 2) * n          # update_q_dots, update_xr_dots,
+    return (2 * spmv + q_in + fused) * itemsize  # update_p, dot_mixed
 
 
 def ref_fused_iteration_bytes(shape, itemsize: int) -> int:
@@ -1031,12 +1191,16 @@ def run_cli(argv):
 def expected_counts(iters: int, batched: bool = False) -> dict:
     """Every kernel's launches over a fused solve of ``iters`` iterations:
     2 stencils and 1 of each pass per iteration, 2 more dots at setup, and
-    none of the other form or of K6."""
+    none of the other form or of K6.  Unbatched, the second stencil is K1's
+    axpy form (``stencil_nd_axpy``)."""
     sfx = "_batched" if batched else ""
     counts = {k: 0 for k in COUNTERS}
-    counts.update({"stencil_nd" + sfx: 2 * iters, "update_q_dots" + sfx: iters,
+    counts.update({"stencil_nd" + sfx: iters if not batched else 2 * iters,
+                   "update_q_dots" + sfx: iters,
                    "update_xr_dots" + sfx: iters, "update_p" + sfx: iters,
                    "dot_mixed" + sfx: iters + 2})
+    if not batched:
+        counts["stencil_nd_axpy"] = iters
     return counts
 
 
@@ -1673,9 +1837,10 @@ def phase8(torch, smi: str, phase4_ms: float) -> dict:
 #: 9a's sweeps: (label, block, right-hand sides)
 SWEEP_CELLS = (("cs1_paper", PAPER_MESH, 1), ("joule_600", JOULE_MESH, MAIN_NRHS))
 #: the spans 9b's trace.json must hold (one rank: no comm.halo.issue nor .ring)
+#: one rank: the second SpMV forms its own input (K1's axpy form), so no
+#: ``bicgstab.q_in`` opens
 OBS_SPANS = {"solve.krylov", "solve", "solve.cast_fields", "operator.build", "tuning.lookup",
-             "krylov.init", "krylov.iteration", "krylov.flag_wait", "comm.halo.interior",
-             "bicgstab.q_in"}
+             "krylov.init", "krylov.iteration", "krylov.flag_wait", "comm.halo.interior"}
 STENCIL_KERNEL = "stencil_nd_kernel"
 
 
@@ -1799,6 +1964,10 @@ def phase9(torch, smi: str, phase4: dict) -> dict:
         spans = {e["name"] for e in json.loads((run_dir / "trace.json").read_text())[
             "traceEvents"]}
         check(OBS_SPANS <= spans, f"9b: trace.json lacks spans {sorted(OBS_SPANS - spans)}")
+        check("bicgstab.q_in" not in spans, "9b: a one-rank solve opened bicgstab.q_in")
+        axpy = man["metrics"]["gauges"].get("kernels.stencil_nd_axpy.launches")
+        check(axpy == MAIN_ITERS, f"9b: kernels.stencil_nd_axpy.launches {axpy!r}, "
+                                  f"not one an iteration ({MAIN_ITERS})")
         same_run("9b --obs", res, counts, phase4)
         out["obs"] = dict(ms_per_iter=res["ms_per_iter"], phase4_ms_per_iter=phase4["ms_per_iter"],
                           collectives=colls[0] if colls else None, spans=sorted(spans),
@@ -3410,8 +3579,8 @@ def launch_ranks(part: str, nproc: int, timeout: int) -> tuple[list[dict], Path]
 
 def p12_expected(iters: int, ring_patches: int) -> dict:
     """A rank's launches over ``iters`` fused iterations with a split ring of
-    ``ring_patches`` slabs per SpMV."""
-    counts = {k: n for k, n in expected_counts(iters).items() if n}
+    ``ring_patches`` slabs per SpMV (several ranks form q_in: no axpy form)."""
+    counts = {k: n for k, n in expected_counts(iters).items() if n and k != "stencil_nd_axpy"}
     counts["stencil_nd"] = 2 * iters * (1 + ring_patches)
     return counts
 
@@ -4400,6 +4569,9 @@ def main(argv=None) -> int:
                          "torch.profiler")
     ap.add_argument("--out", type=Path, default=Path("build/chip_smoke.json"),
                     help="where the full JSON record goes (relative to the checkout)")
+    ap.add_argument("--sass-against", type=Path, metavar="CHECKOUT",
+                    help="another checkout's root: its K1, K6 and K7 instances must "
+                         "compile to this build's SASS")
     ap.add_argument("--rank-part", choices=["ranks", "world_of_one", "train"],
                     help=argparse.SUPPRESS)      # phase 12's and 14's torchrun ranks
     ap.add_argument("--rank-out", type=Path, help=argparse.SUPPRESS)
@@ -4439,12 +4611,25 @@ def main(argv=None) -> int:
     check(len(dots) == DOT_INSTANCES and all(
         v.get("spill_stores") == 0 and v.get("spill_loads") == 0 for v in dots.values()),
           f"K6 instances spill or are missing from the ptxas log: {dots}")
+    axpy = {k: v for k, v in ptxas.items() if AXPY_INSTANCE.search(k)}
+    record["axpy_ptxas"] = axpy
+    emit(dict(phase="axpy_ptxas", kernels=axpy))
+    check(len(axpy) == AXPY_INSTANCES and all(
+        v.get("spill_stores") == 0 and v.get("spill_loads") == 0 for v in axpy.values()),
+          f"K1's axpy instances spill or are missing from the ptxas log: {axpy}")
+    if args.sass_against:
+        record["sass"] = compare_sass(lib_path, args.sass_against.resolve())
+        emit(dict(phase="sass", **record["sass"]))
 
     # -- phase 2: kernels vs plain versions, then times at the paths' shapes ---
     check_kernels(torch)
     times = check_and_time_paper_mesh(torch)
     times["batched"] = check_and_time_batched(torch)
     times["family_256"] = time_family(torch)
+    # after the timings the kernel table holds K1 and K6 to: the form's 600x595x1536
+    # tensors, allocated and freed before them, left K6's one-dot variant 9% slower
+    record["axpy"] = check_axpy_stencil(torch)
+    emit(dict(phase="axpy", card=smi, **record["axpy"]))
     sizes = ([math.prod(s) for s in CHECK_SHAPES] + [math.prod(PAPER_MESH)]
              + [math.prod(JOULE_MESH)])
     record["kernels_vs_plain"] = dict(
@@ -4603,6 +4788,13 @@ def main(argv=None) -> int:
                             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                             bound_by=t["bound_by"], library_ms=t["library_ms"]))
         check(kernels[-1]["launches"] > 0, f"{name}: no launch on its path ({path})")
+    k1a = record["axpy"]["meshes"][0]                  # PAPER_MESH, phase 4's
+    kernels.append(dict(name="stencil_nd_axpy", route="cuda", source=_SRC + "stencil_nd.cu",
+                        replaces=None, launches=counts["stencil_nd_axpy"],
+                        max_abs_err=err["stencil_nd_axpy"], ms=k1a["ms"], plain_ms=None,
+                        bound_ms=k1a["bound_ms"], bound_by=k1a["bound_by"], library_ms=None,
+                        q_in_then_k1_ms=k1a["q_in_then_k1_ms"]))
+    check(kernels[-1]["launches"] > 0, "stencil_nd_axpy: no launch on its path (paper_mesh)")
     k7 = record["wave"]["time"]
     kernels.append(dict(name="wave_leapfrog", route="cuda", source=_SRC + "wave_leapfrog.cu",
                         replaces=None, launches=record["wave"]["shot"]["launches"],

@@ -8,7 +8,9 @@ what a Krylov solver needs from the matrix side:
 * ``reduce_partials(ps)`` : the AllReduce of precomputed f32 local partials;
 * ``reduce_max(x)``       : the fabric-wide max;
 * ``fused``               : optional :class:`FusedOps`, the kernel passes that
-  run one BiCGStab iteration as kernels plus 3 sync points.
+  run one BiCGStab iteration as kernels plus 3 sync points;
+* ``apply_axpy(alpha, r, s)``: optional ``A (r - st(alpha) s)`` on one
+  unbatched block, the SpMV forming its own input (BiCGStab's second SpMV).
 
 Backends (:data:`BACKENDS`):
 
@@ -73,14 +75,22 @@ class LinearOperator:
     reduce_max: Callable
     fused: FusedOps | None = None
     schedule: CommSchedule = OVERLAP
+    #: (alpha, r, s) -> A (r - st(alpha) s) for one unbatched block, or None
+    apply_axpy: Callable | None = None
 
     @property
     def spec(self):
         return self.coeffs.spec
 
+    def takes_axpy(self, v: torch.Tensor) -> bool:
+        """Whether ``apply_axpy`` takes operands like ``v``: it is set and
+        ``v`` is one unbatched block."""
+        return self.apply_axpy is not None and v.ndim == self.coeffs.ndim
+
     def with_apply(self, apply: Callable) -> "LinearOperator":
-        """A copy with the SpMV swapped (how right preconditioning wraps)."""
-        return dataclasses.replace(self, apply=apply)
+        """A copy with the SpMV swapped (how right preconditioning wraps); the
+        copy has no ``apply_axpy``, which would skip the new SpMV."""
+        return dataclasses.replace(self, apply=apply, apply_axpy=None)
 
 
 def _identity_reduce(partials) -> torch.Tensor:
@@ -178,16 +188,24 @@ def fused_operator(coeffs: StencilCoeffs, fabric: FabricAxes | None = None, *,
     here (keyed by the card, spec, storage dtype and block, so the batch
     size need not be known yet): a cached entry is passed to every launch,
     and without one (or with a stale one) the kernel keeps its default plan
-    for whatever batch it is given."""
+    for whatever batch it is given.
+
+    ``apply_axpy`` is the stencil kernel's form that stages its own input
+    ``r - st(alpha) s`` (``kernels/stencil_nd/kernel.py:stencil_nd_axpy``),
+    set where that input need not exist in memory: one rank (no halo to
+    exchange), the family's unit diagonal, and a Z the kernel's 16-B staging
+    takes; it runs on unbatched operands only."""
     from repro_torch.core import tuning
     from repro_torch.kernels.fused_iter import dot_mixed, update_p, update_q_dots, update_xr_dots
+    from repro_torch.kernels.stencil_nd.kernel import axpy_staged, stencil_nd_axpy
     from repro_torch.kernels.stencil_nd.ops import fused_local_apply
 
     fabric = fabric or FabricAxes()
     cf = coeffs.astype(policy.storage)
     sched = get_schedule(schedule)
-    _dots, reduce_partials, reduce_max = _make_reductions(
-        _fabric_axis_names(fabric), fused_reductions, mesh_ndim=cf.ndim)
+    names = _fabric_axis_names(fabric)
+    _dots, reduce_partials, reduce_max = _make_reductions(names, fused_reductions,
+                                                          mesh_ndim=cf.ndim)
 
     cf_unit = StencilCoeffs(cf.diags)   # the kernel's unit-diagonal contract
     device = next(iter(cf.diags.values())).device
@@ -205,6 +223,16 @@ def fused_operator(coeffs: StencilCoeffs, fabric: FabricAxes | None = None, *,
         def apply(v):
             return (base_apply(v).to(c) + dcorr * v.to(c)).to(policy.storage)
 
+    apply_axpy = None
+    if not names and cf.diag is None and axpy_staged(cf.shape, policy.storage.itemsize):
+        spec = cf.spec
+        cf_list = [cf.diags[n] for n in spec.names]
+
+        def apply_axpy(alpha, r, s):
+            return stencil_nd_axpy(alpha, r.contiguous(), s.contiguous(), cf_list,
+                                   spec.offsets, radius=spec.radius,
+                                   accum_dtype=policy.compute, config=config)
+
     batched = lambda a: a.ndim > cf.ndim
     dot_partial = lambda a, b: dot_mixed(a, b, batched=batched(a))
     return LinearOperator(
@@ -214,6 +242,7 @@ def fused_operator(coeffs: StencilCoeffs, fabric: FabricAxes | None = None, *,
         reduce_partials=reduce_partials,
         reduce_max=reduce_max,
         schedule=sched,
+        apply_axpy=apply_axpy,
         fused=FusedOps(
             dot_partial=dot_partial,
             update_q_dots=lambda alpha, r, s, y: update_q_dots(

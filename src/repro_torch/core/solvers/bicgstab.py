@@ -58,19 +58,23 @@ def bicgstab_fused_step(op, policy: Policy, x, r, p, r0, rho):
     inputs and outputs as :func:`bicgstab_step`.
 
     ``update_q_dots`` recomputes ``q = r - alpha*s`` in the pass that forms
-    the <q,y>/<y,y> partials: the SpMV needs q before y exists, so q is first
-    formed by plain tensor ops as the SpMV input (same arithmetic, so the
-    same bits as the kernel's q) and the kernel fuses the recompute with both
-    dot partials instead of re-reading q.
+    the <q,y>/<y,y> partials: the SpMV needs q before y exists.  Where the
+    operator's ``apply_axpy`` takes the operands (``takes_axpy``), the SpMV
+    forms q itself as it stages it, so q is never stored; otherwise q is
+    first formed by plain tensor ops as the SpMV input.  Both use the
+    kernel's arithmetic, so y has the same bits either way.
     """
     f, st = op.fused, policy.storage
     s = op.apply(p)
     (r0s,) = op.reduce_partials([f.dot_partial(r0, s)])     # sync point 1
     alpha, bad1 = safe_div(rho, r0s)
-    with obs_trace.span("bicgstab.q_in"):
-        q_in = r - bcast_scalar(alpha.to(st), s) * s         # SpMV input, kernel-identical
-    y = op.apply(q_in)
-    del q_in
+    if op.takes_axpy(s):
+        y = op.apply_axpy(alpha, r, s)
+    else:
+        with obs_trace.span("bicgstab.q_in"):
+            q_in = r - bcast_scalar(alpha.to(st), s) * s     # SpMV input, kernel-identical
+        y = op.apply(q_in)
+        del q_in
     q, qy, yy = f.update_q_dots(alpha, r, s, y)
     qy, yy = op.reduce_partials([qy, yy])                   # sync point 2
     omega, bad2 = safe_div(qy, yy)

@@ -35,6 +35,9 @@
 //   shared memory; otherwise element by element through registers.  The
 //   coefficient fields and u have a pitch of Z x itemsize, 16-B aligned when
 //   Z % VZ == 0.
+// * A formed v (StageAxpy): BiCGStab's second SpMV input r - st(alpha) s,
+//   r and s bare, each plane copied as the bare block is and combined in
+//   the ring slot, so the input never reaches device memory.
 // * The x range splits into segments (each re-reading its 2r halo planes)
 //   so that (y, z) tiles x segments give enough blocks for the 132 SMs; the
 //   caller's plan (kernels/stencil_nd/kernel.py:launch_plan) sets them.
@@ -395,6 +398,88 @@ struct StageAsync {
     }
   }
   __device__ __forceinline__ void store(RawT*, int, int) const { cp_async_wait_all(); }
+};
+
+// q = r - st(a) s on one word of storage bits, as update_q_dots_kernel forms
+// it (fused_iter.cu): each op rounded to storage.  f32: one element; bf16: a
+// pair, the product by mul.bf16x2 and the difference by add.bf16x2 of the
+// negated product, one rounding each, which gives the scalar helpers' bits.
+template <typename RawT>
+__device__ __forceinline__ uint32_t axpy_word(uint32_t r, uint32_t s, uint32_t a) {
+  if constexpr (sizeof(RawT) == 4) {
+    return __float_as_uint(
+        sub<float>(__uint_as_float(r), mul<float>(__uint_as_float(a), __uint_as_float(s))));
+  } else {
+    return add_bf16x2(r, mul_bf16x2(a, s) ^ 0x80008000u);
+  }
+}
+
+// Staging a plane of q = r - st(a) s for the SpMV that forms its own input
+// (one RHS, both vectors bare, in 16-B vectors as StageAsync): load copies
+// r's plane into the free slot, as StageAsync copies v, and s's into one
+// scratch slot beside the ring; store waits for this thread's copies and
+// combines the vectors it copied, in place.  Each vector is copied and
+// combined by the same thread, so the Ring's barrier alone publishes the
+// slot.  A vector outside the block stays zero, the zero halo q would have.
+// bind gives the vectors, the scratch slot and a (f32, rounded to storage
+// here); src_of gives r's planes, and s's lie at the same offsets.
+template <typename RawT, int ROWS, int P>
+struct StageAxpy : StageAsync<RawT, ROWS, P, 1> {
+  using Base = StageAsync<RawT, ROWS, P, 1>;
+  using Base::KP;
+  using Base::VZ;
+  using Base::WU;
+  const RawT* r0 = nullptr;
+  const RawT* s0 = nullptr;
+  RawT* scratch = nullptr;
+  uint32_t aw = 0;         // st(a): f32 bits, or the bf16 value in both halves
+  bool copied = false;     // the plane in flight lies inside the block
+
+  __device__ __forceinline__ StageAxpy(int rows_ok, int cols_ok, int row0, int col0)
+      : Base(rows_ok, cols_ok, row0, col0) {}
+
+  __device__ __forceinline__ void bind(const RawT* r, const RawT* s, RawT* scr, float a) {
+    r0 = r, s0 = s, scratch = scr;
+    if constexpr (sizeof(RawT) == 4) {
+      aw = __float_as_uint(a);
+    } else {
+      const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(a));
+      aw = h | (h << 16);
+    }
+  }
+
+  // as StageAsync::load, for one RHS; src: r's plane (null outside the block)
+  __device__ __forceinline__ void load(const RawT* src, int64_t, int pz, int, RawT* dst, int) {
+    copied = src != nullptr;
+    const RawT* ss = copied ? s0 + (src - r0) : nullptr;
+#pragma unroll
+    for (int k = 0; k < KP; ++k) {
+      const int e = threadIdx.x + k * kThreads, row = e / WU, col = VZ * (e % WU);
+      if (row < ROWS) {
+        RawT* at = dst + row * P + col;
+        if (copied && (this->inside >> k & 1u)) {
+          cp_async16(at, src + row * pz + col);
+          cp_async16(scratch + row * P + col, ss + row * pz + col);
+        } else {
+          *reinterpret_cast<uint4*>(at) = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+    }
+  }
+  __device__ __forceinline__ void store(RawT* dst, int, int) const {
+    cp_async_wait_all();
+    if (!copied) return;
+#pragma unroll
+    for (int k = 0; k < KP; ++k) {
+      const int e = threadIdx.x + k * kThreads, row = e / WU, col = VZ * (e % WU);
+      if (row < ROWS && (this->inside >> k & 1u)) {
+        uint4* at = reinterpret_cast<uint4*>(dst + row * P + col);
+        const uint4 r = *at, s = *reinterpret_cast<const uint4*>(scratch + row * P + col);
+        *at = make_uint4(axpy_word<RawT>(r.x, s.x, aw), axpy_word<RawT>(r.y, s.y, aw),
+                         axpy_word<RawT>(r.z, s.z, aw), axpy_word<RawT>(r.w, s.w, aw));
+      }
+    }
+  }
 };
 
 // The x-march's ring of 2r+2 slots (one per padded plane) for one block:

@@ -44,8 +44,14 @@
 // staging serves both, with the form's origin and bounds passed at run
 // time; bf16 pairs (padded) and 16-B vectors (bare) are compile-time
 // modes (FORM) of the same kernel.  Both forms give the same bits where
-// the padded block's halo is zero.  The kernel is right for blocks thinner than
-// a tile in any axis (the overlap schedule's ring slabs, down to 1 x by x Z).
+// the padded block's halo is zero.  The kernel is right for blocks thinner
+// than a tile in any axis (the overlap schedule's ring slabs, down to 1 x
+// by x Z).
+//
+// A fourth form takes BiCGStab's second SpMV input unformed: y = A q with q
+// = r - st(alpha) s, one RHS, r and s bare; it stages each plane of q from
+// a plane of r and one of s (stencil_march.cuh: StageAxpy), so q is never
+// written to device memory.  Its shared memory holds one more plane, of s.
 #include "stencil_march.cuh"
 
 namespace repro {
@@ -56,8 +62,9 @@ __host__ __device__ constexpr int max_chunk(int r) { return r == 1 ? 4 : r == 2 
 
 // How the kernel reads v: element by element (either block, p.bare says
 // which); the r-padded block in bf16 pairs of 4-B loads; the bare block in
-// 16-B vectors copied asynchronously (Z % VZ == 0 and v 16-B aligned)
-enum Form : int { kElems = 0, kPaddedPairs = 1, kBareVec = 2 };
+// 16-B vectors copied asynchronously (Z % VZ == 0 and v 16-B aligned); or v
+// = r - st(alpha) s formed from two bare vectors so copied (one RHS)
+enum Form : int { kElems = 0, kPaddedPairs = 1, kBareVec = 2, kBareAxpy = 3 };
 
 struct Params {
   const void* vp;                 // (B, bx+2r, by+2r, Z+2r) or bare (B, bx, by, Z), contiguous
@@ -68,6 +75,8 @@ struct Params {
   int wide;                       // fields and u 16-B aligned and Z % VZ == 0
   int bare;                       // vp is the bare block
   int64_t vp_stride, u_stride;    // per-RHS element strides
+  const void* sp;                 // kBareAxpy: s (bx, by, Z), v = vp - st(*alpha) sp
+  const float* alpha;             // kBareAxpy: one f32
 };
 
 // Blocks per SM the register budget is set for: one RHS (64 registers; 4
@@ -82,7 +91,9 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NB)) stencil_nd_kernel(co
   using S = Spec<KIND, R>;
   using RawT = typename Raw<T>::type;
   constexpr int VZ = Tile<T>::VZ, TZ = Tile<T>::TZ, P = Tile<T>::P;
-  constexpr bool VEC = FORM == kBareVec;
+  constexpr bool AXPY = FORM == kBareAxpy;
+  constexpr bool VEC = FORM == kBareVec || AXPY;
+  static_assert(!AXPY || NB == 1, "the formed input is one RHS");
   const bool bare = VEC || (FORM == kElems && p.bare);
   // staged rows and elements per row: the tile's z range and r either side,
   // or, for 16-B vectors of the bare block, the whole shared row
@@ -91,7 +102,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NB)) stencil_nd_kernel(co
   constexpr int SLOT = ROWS * P;                     // elements of one staged plane
   constexpr int QS = SLOTS * SLOT;                   // elements of one RHS's ring
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  RawT* sm = reinterpret_cast<RawT*>(smem_raw);     // [NB][SLOTS][ROWS][P]
+  RawT* sm = reinterpret_cast<RawT*>(smem_raw);     // [NB][SLOTS][ROWS][P] (+ s's slot)
 
   const int x0 = blockIdx.y * p.seg_len;
   if (x0 >= p.bx) return;
@@ -108,9 +119,11 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NB)) stencil_nd_kernel(co
   const RawT* vp = static_cast<const RawT*>(p.vp) + b0 * p.vp_stride;
 
   // the plane being staged
-  std::conditional_t<VEC, StageAsync<RawT, ROWS, P, NB>,
-                     Stage<RawT, ROWS, W, P, NB, FORM == kPaddedPairs>>
+  std::conditional_t<AXPY, StageAxpy<RawT, ROWS, P>,
+                     std::conditional_t<VEC, StageAsync<RawT, ROWS, P, NB>,
+                                        Stage<RawT, ROWS, W, P, NB, FORM == kPaddedPairs>>>
       stage(rows_ok, cols_ok, row0, col0);
+  if constexpr (AXPY) stage.bind(vp, static_cast<const RawT*>(p.sp), sm + QS, __ldg(p.alpha));
   auto src_of = [&](int pp) -> const RawT* {         // padded plane pp (interior pp - r)
     if (!bare) return vp + ((int64_t)pp * py + ty0) * pz + tz0;
     return (unsigned)(pp - R) < (unsigned)p.bx
@@ -156,8 +169,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NB)) stencil_nd_kernel(co
 
 template <typename T, typename A, int KIND, int R, int NB, int FORM>
 static int launch(Params& p, int nc_max, int segments, cudaStream_t stream) {
-  constexpr int QS = (2 * R + 2) * (kTY + 2 * R) * Tile<T>::P;
-  const size_t smem = (size_t)nc_max * QS * sizeof(T);
+  constexpr int SLOT = (kTY + 2 * R) * Tile<T>::P, QS = (2 * R + 2) * SLOT;
+  const size_t smem = ((size_t)nc_max * QS + (FORM == kBareAxpy ? SLOT : 0)) * sizeof(T);
   auto kern = stencil_nd_kernel<T, A, KIND, R, NB, FORM>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
@@ -184,6 +197,7 @@ static int dispatch_chunk(Params& p, int chunk, int segments, cudaStream_t s) {
 
 template <typename T, typename A, int KIND, int R>
 static int dispatch_form(Params& p, int form, int chunk, int segments, cudaStream_t s) {
+  if (form == kBareAxpy) return launch<T, A, KIND, R, 1, kBareAxpy>(p, 1, segments, s);
   if constexpr (sizeof(T) == 2) {
     if (form == kPaddedPairs)
       return dispatch_chunk<T, A, KIND, R, kPaddedPairs>(p, chunk, segments, s);
@@ -219,11 +233,17 @@ static bool family_offsets(const int* off, int n_off, int r) {
   return false;
 }
 
+// sp non-null: the formed input (kBareAxpy), which needs one bare RHS, Z %
+// VZ == 0 and vp and sp 16-B aligned
 template <typename T, typename A>
-static int run(const void* vp, bool bare, const void* cf_ptrs, const int* off, int n_off, int r,
-               long long nb, long long bx, long long by, long long z, void* u, int ty, int tz,
-               int seg_len, int chunk, cudaStream_t s) {
+static int run(const void* vp, const void* sp, const float* alpha, bool bare,
+               const void* cf_ptrs, const int* off, int n_off, int r, long long nb, long long bx,
+               long long by, long long z, void* u, int ty, int tz, int seg_len, int chunk,
+               cudaStream_t s) {
   if (ty != kTY || tz != Tile<T>::TZ) return (int)cudaErrorInvalidValue;
+  if (sp != nullptr && (nb != 1 || !bare || z % Tile<T>::VZ != 0 || !aligned16(vp) ||
+                        !aligned16(sp) || alpha == nullptr))
+    return (int)cudaErrorInvalidValue;
   const long long ntz = (z + tz - 1) / tz, nty = (by + ty - 1) / ty;
   const long long segments = (bx + seg_len - 1) / seg_len;
   if (ntz * nty > 0x7fffffffLL || segments > 65535 || (nb + chunk - 1) / chunk > 65535)
@@ -247,13 +267,43 @@ static int run(const void* vp, bool bare, const void* cf_ptrs, const int* off, i
   p.bare = bare;
   p.vp_stride = bare ? bx * by * z : (bx + 2 * r) * (by + 2 * r) * (z + 2 * r);
   p.u_stride = bx * by * z;
+  p.sp = sp;
+  p.alpha = alpha;
   // padded bf16 rows start 4-B aligned when the padded pitch Z + 2r is even;
   // bare rows start 16-B aligned when Z % VZ == 0
   const bool pair =
       sizeof(T) == 2 && (z + 2 * r) % 2 == 0 && (reinterpret_cast<uintptr_t>(vp) & 3) == 0;
-  const int form = bare ? (z % Tile<T>::VZ == 0 && aligned16(vp) ? kBareVec : kElems)
-                        : (pair ? kPaddedPairs : kElems);
+  const int form = sp != nullptr ? kBareAxpy
+                   : bare ? (z % Tile<T>::VZ == 0 && aligned16(vp) ? kBareVec : kElems)
+                          : (pair ? kPaddedPairs : kElems);
   return dispatch_spec<T, A>(p, n_off, r, form, chunk, (int)segments, s);
+}
+
+// The entry points' common checks and dtype dispatch
+static int entry(int storage, int accum, const void* vp, const void* sp, const float* alpha,
+                 int bare, const void* cf_ptrs, const void* offsets, int n_off, int radius,
+                 long long nb, long long bx, long long by, long long z, void* u, int ty, int tz,
+                 int seg_len, int chunk, void* stream) {
+  const int* off = static_cast<const int*>(offsets);
+  if (nb < 1 || nb > kMaxBatch || bx < 1 || by < 1 || z < 1 || bx > 0x7fffffffLL ||
+      (by + 2 * radius) * (z + 2 * radius) > 0x7fffffffLL || seg_len < 1 || chunk < 1 ||
+      !family_offsets(off, n_off, radius))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool b = bare != 0;
+  if (storage == kF32 && accum == kF32)
+    return run<float, float>(vp, sp, alpha, b, cf_ptrs, off, n_off, radius, nb, bx, by, z, u,
+                             ty, tz, seg_len, chunk, s);
+  if (storage == kF32 && accum == kBF16)
+    return run<float, bf16>(vp, sp, alpha, b, cf_ptrs, off, n_off, radius, nb, bx, by, z, u,
+                            ty, tz, seg_len, chunk, s);
+  if (storage == kBF16 && accum == kF32)
+    return run<bf16, float>(vp, sp, alpha, b, cf_ptrs, off, n_off, radius, nb, bx, by, z, u,
+                            ty, tz, seg_len, chunk, s);
+  if (storage == kBF16 && accum == kBF16)
+    return run<bf16, bf16>(vp, sp, alpha, b, cf_ptrs, off, n_off, radius, nb, bx, by, z, u,
+                           ty, tz, seg_len, chunk, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace sten
@@ -273,27 +323,20 @@ int repro_stencil_nd(int storage, int accum, const void* vp, int bare, const voi
                      const void* offsets, int n_off, int radius, long long nb, long long bx,
                      long long by, long long z, void* u, int ty, int tz, int seg_len, int chunk,
                      void* stream) {
-  using namespace repro;
-  using namespace repro::sten;
-  const int* off = static_cast<const int*>(offsets);
-  if (nb < 1 || nb > kMaxBatch || bx < 1 || by < 1 || z < 1 || bx > 0x7fffffffLL ||
-      (by + 2 * radius) * (z + 2 * radius) > 0x7fffffffLL || seg_len < 1 || chunk < 1 ||
-      !family_offsets(off, n_off, radius))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (storage == kF32 && accum == kF32)
-    return run<float, float>(vp, bare != 0, cf_ptrs, off, n_off, radius, nb, bx, by, z, u,
-                             ty, tz, seg_len, chunk, s);
-  if (storage == kF32 && accum == kBF16)
-    return run<float, bf16>(vp, bare != 0, cf_ptrs, off, n_off, radius, nb, bx, by, z, u,
-                            ty, tz, seg_len, chunk, s);
-  if (storage == kBF16 && accum == kF32)
-    return run<bf16, float>(vp, bare != 0, cf_ptrs, off, n_off, radius, nb, bx, by, z, u,
-                            ty, tz, seg_len, chunk, s);
-  if (storage == kBF16 && accum == kBF16)
-    return run<bf16, bf16>(vp, bare != 0, cf_ptrs, off, n_off, radius, nb, bx, by, z, u,
-                           ty, tz, seg_len, chunk, s);
-  return (int)cudaErrorInvalidValue;
+  return repro::sten::entry(storage, accum, vp, nullptr, nullptr, bare, cf_ptrs, offsets, n_off,
+                            radius, nb, bx, by, z, u, ty, tz, seg_len, chunk, stream);
+}
+
+// u = A q with q = r - st(*alpha) s formed as the kernel stages it: r and s
+// the bare (bx, by, Z) block, Z a multiple of 16 B / itemsize and both 16-B
+// aligned; alpha a device pointer to one f32.  The rest as repro_stencil_nd
+// with B = 1.
+int repro_stencil_nd_axpy(int storage, int accum, const void* r, const void* s,
+                          const void* alpha, const void* cf_ptrs, const void* offsets, int n_off,
+                          int radius, long long bx, long long by, long long z, void* u, int ty,
+                          int tz, int seg_len, void* stream) {
+  return repro::sten::entry(storage, accum, r, s, static_cast<const float*>(alpha), 1, cf_ptrs,
+                            offsets, n_off, radius, 1, bx, by, z, u, ty, tz, seg_len, 1, stream);
 }
 
 const char* repro_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

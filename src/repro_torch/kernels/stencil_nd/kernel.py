@@ -14,8 +14,11 @@ the bare one), a CUDA tensor launches the kernel or raises.  Both wrappers
 launch one CUDA kernel (the unbatched one with B = 1), cut into tiles, x
 segments and RHS chunks by :func:`launch_plan`: today's plan, or a tuning
 config's x segment and RHS chunk (``core/tuning.py:KernelConfig``, checked
-here before any launch).  Every plan gives the same bits.  ``launches``
-counts kernel launches only, one counter per wrapper.
+here before any launch).  Every plan gives the same bits.
+:func:`stencil_nd_axpy` is BiCGStab's second SpMV with its input unformed:
+``A (r - st(alpha) s)``, the kernel forming each plane of the input as it
+stages it, so that input never reaches device memory.  ``launches`` counts
+kernel launches only, one counter per wrapper.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.stencil_nd.ref import stencil_nd_padded_ref, stencil_nd_ref
 
 #: kernel launches in this process (CUDA tensors only)
-launches = {"stencil_nd": 0, "stencil_nd_batched": 0}
+launches = {"stencil_nd": 0, "stencil_nd_batched": 0, "stencil_nd_axpy": 0}
 
 #: the family specs the kernel is compiled for: (offset count, radius) ->
 #: (kind, the most right-hand sides one block carries; max_chunk of stencil_nd.cu)
@@ -96,15 +99,17 @@ def config_error(config, shape: tuple[int, int, int], n_off: int, radius: int,
 
 
 def launch_plan(shape: tuple[int, int, int], nb: int, n_off: int, radius: int,
-                itemsize: int, config=None) -> LaunchPlan:
+                itemsize: int, config=None, *, axpy: bool = False) -> LaunchPlan:
     """The stencil kernel's launch plan for a ``shape`` block, ``nb`` RHS, a
     family spec of ``n_off`` offsets and ``radius``, and ``itemsize``-byte
     storage (counterpart of ``repro``'s ``_valid_tile``).  The tile is the
     compiled one (:func:`compiled_tile`).  ``config`` (a tuning
     ``KernelConfig``) sets the x segment, and the RHS chunk when ``nb`` is
     the batch it was chosen for (another batch keeps its default chunk);
-    without one the plan aims at ``TARGET_BLOCKS`` blocks.  An invalid
-    config raises."""
+    without one the plan aims at ``TARGET_BLOCKS`` blocks.  ``axpy``: the
+    form that stages ``r - st(alpha) s`` (:func:`stencil_nd_axpy`), whose
+    shared memory holds one more plane, of ``s``.  An invalid config
+    raises."""
     if (n_off, radius) not in FAMILY:
         raise ValueError(f"the stencil kernel is built for the family specs {sorted(FAMILY)} "
                          f"(offsets, radius); got ({n_off}, {radius})")
@@ -124,8 +129,10 @@ def launch_plan(shape: tuple[int, int, int], nb: int, n_off: int, radius: int,
         chunk = 1 if nb == 1 else FAMILY[(n_off, r)][1]
     tiles_y, tiles_z = -(-by // ty), -(-z // tz)
     chunks = -(-nb // chunk)
-    # shared memory: a ring of 2r+2 planes of (ty+2r) rows, pitch tz + 2 vz, per RHS
-    smem = min(chunk, nb) * (2 * r + 2) * (ty + 2 * r) * (tz + 2 * vz) * itemsize
+    # shared memory: a ring of 2r+2 planes of (ty+2r) rows, pitch tz + 2 vz, per RHS,
+    # and the axpy form's plane of s
+    plane = (ty + 2 * r) * (tz + 2 * vz) * itemsize
+    smem = (min(chunk, nb) * (2 * r + 2) + int(axpy)) * plane
     if config is not None:
         seg_len = config.seg_len
     else:
@@ -226,6 +233,62 @@ def stencil_nd(vp: torch.Tensor, coeffs: list[torch.Tensor],
     cut by :func:`launch_plan` under ``config`` (None: today's plan).
     """
     return _apply("stencil_nd", vp, coeffs, offsets, radius, accum_dtype, False, config)
+
+
+def axpy_staged(shape: tuple[int, ...], itemsize: int) -> bool:
+    """Whether the kernel forms :func:`stencil_nd_axpy`'s input itself on a
+    bare block of ``shape``: its 16-B staging, so Z a whole number of 16-B
+    vectors (the operands must also start on 16-B boundaries)."""
+    return shape[-1] % (16 // itemsize) == 0
+
+
+def stencil_nd_axpy(alpha: torch.Tensor, r: torch.Tensor, s: torch.Tensor,
+                    coeffs: list[torch.Tensor], offsets: tuple[tuple[int, int, int], ...], *,
+                    radius: int, accum_dtype: torch.dtype = torch.float32,
+                    config=None) -> torch.Tensor:
+    """y = A q with q = r - st(alpha) s: BiCGStab's second SpMV on one bare
+    block, its input formed by the kernel as it stages each plane.
+
+    ``alpha`` is a 0-d (or one-element) f32 tensor on ``r``'s device, read by
+    the kernel and rounded there to the storage dtype; ``r`` and ``s`` are the
+    bare ``(bx, by, Z)`` block; the rest as for :func:`stencil_nd`.  ``q``
+    is formed as ``update_q_dots`` forms it, each op rounded to the storage
+    dtype, so ``y`` equals :func:`stencil_nd` on ``r - alpha.to(r.dtype) * s``
+    bit for bit.  A CPU tensor takes the plain version of both.  On the card
+    the kernel stages 16-B vectors: Z not a whole number of them
+    (:func:`axpy_staged`), or an operand off a 16-B boundary, raises.
+    """
+    if tuple(r.shape) != tuple(s.shape) or r.dtype != s.dtype:
+        raise ValueError(f"stencil_nd_axpy takes r and s of one shape and dtype; got "
+                         f"{r.dtype}{tuple(r.shape)} and {s.dtype}{tuple(s.shape)}")
+    shape, bare = _form("stencil_nd_axpy", r, coeffs, radius, 0)
+    if not bare:
+        raise ValueError(f"stencil_nd_axpy takes the bare block {shape}; got {tuple(r.shape)}")
+    if r.device.type == "cpu":
+        return stencil_nd(r - alpha.to(r.dtype) * s, coeffs, offsets, radius=radius,
+                          accum_dtype=accum_dtype, config=config)
+    for v in (r, s):
+        _check("stencil_nd_axpy", v, coeffs, offsets, radius, 0)
+    if not axpy_staged(shape, r.element_size()) or r.data_ptr() % 16 or s.data_ptr() % 16:
+        raise ValueError(f"stencil_nd_axpy stages 16-B vectors: Z a multiple of "
+                         f"{16 // r.element_size()} and r, s 16-B aligned; got Z = {shape[-1]}, "
+                         f"r at {r.data_ptr() % 16}, s at {s.data_ptr() % 16} mod 16")
+    if alpha.dtype != torch.float32 or alpha.numel() != 1 or alpha.device != r.device:
+        raise ValueError(f"stencil_nd_axpy takes alpha as one f32 on {r.device}; got "
+                         f"{alpha.dtype}{tuple(alpha.shape)} on {alpha.device}")
+    plan = launch_plan(shape, 1, len(offsets), radius, r.element_size(), config, axpy=True)
+    lib = _build.load_library()
+    alpha = alpha.contiguous()
+    u = torch.empty(shape, dtype=r.dtype, device=r.device)
+    ptrs = (ctypes.c_uint64 * len(coeffs))(*(c.data_ptr() for c in coeffs))
+    offs = (ctypes.c_int * (3 * len(offsets)))(*(o for off in offsets for o in off))
+    code = lib.repro_stencil_nd_axpy(
+        _build.dtype_code(r.dtype), _build.dtype_code(accum_dtype), r.data_ptr(), s.data_ptr(),
+        alpha.data_ptr(), ctypes.addressof(ptrs), ctypes.addressof(offs), len(coeffs), radius,
+        *shape, u.data_ptr(), plan.ty, plan.tz, plan.seg_len, _build.stream_handle(r.device))
+    _build.check_launch(lib, code, "stencil_nd_axpy")
+    launches["stencil_nd_axpy"] += 1
+    return u
 
 
 def stencil_nd_batched(vp: torch.Tensor, coeffs: list[torch.Tensor],

@@ -14,7 +14,8 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch.core import bicgstab, comm  # noqa: E402
 from repro_torch.core.halo import FabricAxes  # noqa: E402
 from repro_torch.core.precision import get_policy  # noqa: E402
-from repro_torch.core.stencil import convection_diffusion  # noqa: E402
+from repro_torch.core.stencil import convection_diffusion, heterogeneous_poisson  # noqa: E402
+from repro_torch.kernels.stencil_nd import kernel as stencil_kernel  # noqa: E402
 from repro_torch.kernels.stencil_nd import ops  # noqa: E402
 from repro_torch.launch.mesh import make_mesh_for_devices  # noqa: E402
 from repro_torch.obs import metrics, trace  # noqa: E402
@@ -54,6 +55,18 @@ def _parent(e) -> str | None:
     return e.cpu_parent.name if e.cpu_parent is not None else None
 
 
+def _stub_axpy(monkeypatch):
+    """Record K1's axpy form (the second SpMV, its input formed as it is
+    staged) as a profiler range ``k1_axpy`` around the real wrapper."""
+    real = stencil_kernel.stencil_nd_axpy
+
+    def k1_axpy(alpha, r, s, *a, **kw):
+        with torch_profiler.record_function("k1_axpy"):
+            return real(alpha, r, s, *a, **kw)
+
+    monkeypatch.setattr(stencil_kernel, "stencil_nd_axpy", k1_axpy)
+
+
 def test_off_span_is_the_shared_noop_and_opens_no_range(monkeypatch):
     entered = []
     real = torch_profiler.record_function
@@ -72,7 +85,8 @@ def test_off_span_is_the_shared_noop_and_opens_no_range(monkeypatch):
     assert entered == [] and {e["name"] for e in trace.events()} >= SOLVE_SPANS
 
 
-def test_profiler_records_the_solve_tree():
+def test_profiler_records_the_solve_tree(monkeypatch):
+    _stub_axpy(monkeypatch)
     res, evs = _profiled()
     assert int(res.iterations) == ITERS and not trace.is_enabled()
     by = {}
@@ -86,7 +100,11 @@ def test_profiler_records_the_solve_tree():
     # one flag read before the first step and after each step but the last
     assert len(by["krylov.flag_wait"]) == ITERS
     assert {_parent(e) for e in by["krylov.flag_wait"]} == {"krylov.iteration"}
-    assert {_parent(e) for e in by["bicgstab.q_in"]} == {"krylov.iteration"}
+    # one rank: the second SpMV forms q itself, once an iteration, and no
+    # bicgstab.q_in opens (test_q_in_span_on_the_fallback_paths keeps it)
+    assert "bicgstab.q_in" not in by
+    assert len(by["k1_axpy"]) == ITERS
+    assert {_parent(e) for e in by["k1_axpy"]} == {"krylov.iteration"}
     # the program's events are the profiler's ranges
     names = [e["name"] for e in trace.events()]
     assert sorted(names) == sorted(e.name for e in evs if e.name in set(names))
@@ -94,8 +112,10 @@ def test_profiler_records_the_solve_tree():
 
 def test_pad_twice_an_iteration(monkeypatch):
     """One rank: K1 stages the SpMV's zero halo itself, so no ``stencil.pad``
-    span opens; K1 runs on the bare iterate twice an iteration, under
-    ``comm.halo.interior``."""
+    span opens; K1 runs on the bare iterate once an iteration under
+    ``comm.halo.interior``, and its axpy form, which also forms its input
+    ``r - st(alpha) s``, once an iteration under ``krylov.iteration``."""
+    _stub_axpy(monkeypatch)
     real = ops.stencil_nd
 
     def k1(block, *a, **kw):
@@ -107,8 +127,35 @@ def test_pad_twice_an_iteration(monkeypatch):
     _, evs = _profiled()
     assert not [e for e in evs if e.name == "stencil.pad"]
     k1s = [e for e in evs if e.name == "k1"]
-    assert len(k1s) == 2 * ITERS
+    assert len(k1s) == ITERS
     assert {_parent(e) for e in k1s} == {"comm.halo.interior"}
+    axpys = [e for e in evs if e.name == "k1_axpy"]
+    assert len(axpys) == ITERS
+    assert {_parent(e) for e in axpys} == {"krylov.iteration"}
+
+
+@pytest.mark.parametrize("case", ["batched", "odd_z", "raw_diagonal"])
+def test_q_in_span_on_the_fallback_paths(case, monkeypatch):
+    """Where the operator has no axpy form for the operands (a batch of
+    right-hand sides, a Z that is no whole number of 16-B vectors, a raw
+    diagonal), the step forms ``q_in`` by plain ops, once an iteration under
+    ``bicgstab.q_in``, and the wrapper of the axpy form never runs."""
+    _stub_axpy(monkeypatch)
+    shape, nrhs = {"batched": (SHAPE, 2), "odd_z": ((12, 10, 9), 1),
+                   "raw_diagonal": (SHAPE, 1)}[case]
+    gen = torch.Generator().manual_seed(7)
+    cf = (heterogeneous_poisson(gen, shape) if case == "raw_diagonal"
+          else convection_diffusion(shape, device="cpu"))
+    b = torch.randn(((nrhs,) if nrhs > 1 else ()) + shape, generator=gen)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = bicgstab.solve_distributed(make_mesh_for_devices(), cf, b.to(torch.bfloat16),
+                                         policy=get_policy("bf16_mixed"), backend="fused",
+                                         tol=0.0, maxiter=ITERS)
+    assert int(res.iterations.max()) == ITERS
+    q_in = [e for e in prof.events() if e.name == "bicgstab.q_in"]
+    assert len(q_in) == ITERS
+    assert {_parent(e) for e in q_in} == {"krylov.iteration"}
+    assert not [e for e in prof.events() if e.name == "k1_axpy"]
 
 
 @pytest.mark.parametrize("nrhs", [1, 2])
