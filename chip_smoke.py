@@ -125,21 +125,13 @@ Phases (one line of output each, JSON where it carries numbers):
    draws the same coefficients and x_true for the card as for the CPU, bit
    for bit (whether b is equal is recorded).
 
-9. observability, the tuning cache and the performance model, all written
-   into a temporary directory (``REPRO_TORCH_TUNING_CACHE`` and
-   ``--run-dir`` point there).  (a) ``tuning.autotune_cell`` sweeps the
-   stencil kernel's plans at ``cs1_paper`` (608x608x1536, bf16) and at
-   ``joule_600`` x 4 (608^3, 4 RHS, where the RHS chunk matters) on the
-   solve's own one-rank fabric, where every candidate runs what the solve
-   runs (one pad and one K1/K1b): every candidate's output equals the
-   default's bit for bit on the sweep's inputs; one line per candidate
-   gives its CUDA-event ms, the bytes bound at 3.35 TB/s, its share of it,
-   and the card.  On a synthetic 2x2 exchange every swept plan's fused and
-   split ring forms equal each other and the default's split form, bit for
-   bit.  Then the CLI with ``--autotune`` at
-   ``cs1_paper`` (30 iterations, tol 0) must find the sweep's entry (a cache
-   hit) and give phase 4's residuals bit for bit and its launch counts.
-   (b) ``--obs --run-dir``: the manifest passes ``validate_manifest`` and
+9. the ring forms, observability and the performance model, the bundles
+   written into a temporary directory (``--run-dir`` points there).  (a)
+   At ``cs1_paper`` (608x608x1536, bf16) and at ``joule_600`` x 4 (608^3,
+   4 RHS), on a stand-in 2x2 exchange (seeded halo slabs on the split
+   axes, no collective), the overlap schedule's split form (K1/K1b on the
+   bare block, then four ring-slab patches) equals one K1/K1b launch over
+   the exchanged r-padded block, bit for bit.  (b) ``--obs --run-dir``: the manifest passes ``validate_manifest`` and
    names the card and its power limit, ``events.jsonl`` holds one solve
    event of 30 iterations and a ``collectives`` event of 91 AllReduces
    (1 + 3 x 30) and 0 ppermutes, ``trace.json`` holds the solve, operator
@@ -239,11 +231,11 @@ Phases (one line of output each, JSON where it carries numbers):
    operand staged through the host; NCCL refuses two ranks on one card),
    each on its block of a 2x2 fabric.  (a) ``global_apply``'s SpMV through
    K1 and K1b (B = 0 and 3) at 48x48x32 and 608x608x1536 for star7 and at
-   256^3 for box27 and star25, f32 and bf16, in the blocking, overlap-split
-   and overlap-fused forms: every form the same bits on every rank, the
+   256^3 for box27 and star25, f32 and bf16, under the blocking and
+   overlap (split ring) schedules: both the same bits on every rank, the
    gathered output the one-rank K1 of the whole array bit for bit (inputs
    from an integer hash of the global index, so no array crosses), and
-   per rank exactly 1, 1 + 4 ring slabs and 1 launches.  (b) The CLI at the
+   per rank exactly 1 and 1 + 4 ring slabs launches.  (b) The CLI at the
    default cell, ``--backend fused``, f32, seeds 0-4: a true residual below
    1e-5, gaps to the four-rank spmd solve within 8 and 2 on the mean, with
    spmd-order dots the spmd solve bit for bit, per rank 1 + 3n AllReduces,
@@ -252,11 +244,11 @@ Phases (one line of output each, JSON where it carries numbers):
    4) per iteration, K2-K4 1 each, K5 1 each and 2 at setup, its peak memory,
    ms/iter and bytes staged through the host per iteration, recorded as four
    gloo ranks sharing one card (not a speed of the system; no limit).  (f)
-   The same run with ``--autotune --obs --run-dir``: rank 0 sweeps (the
-   fused ring among the candidates) and writes the cache, the others hit
-   it; 12c's residuals bit for bit, the winner's launch counts, one bundle
-   naming the world, backend and rank-to-device map with every rank's
-   91 AllReduces and 240 permutes.  (e) The ``cavity_ghia`` cell on the 2x2
+   The same run with ``--schedule blocking --obs --run-dir`` (one K1 launch
+   per SpMV over the exchanged block): 12c's residuals bit for bit, per
+   rank K1 2 per iteration, its ms/iter beside 12c's, and one bundle naming
+   the world, backend and rank-to-device map with every rank's 91
+   AllReduces and 240 permutes.  (e) The ``cavity_ghia`` cell on the 2x2
    fabric passes the Ghia bands within 1e-3 of phase 10a's centerline and
    launches no kernel.  (g) ``--refine`` (bf16_mixed inner solves): at the
    default cell ``refine_block`` gathered equals the global-array
@@ -1831,72 +1823,67 @@ def phase8(torch, smi: str, phase4_ms: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: the tuning cache, observability and the performance model
+# Phase 9: the ring forms, observability and the performance model
 # ---------------------------------------------------------------------------
 
-#: 9a's sweeps: (label, block, right-hand sides)
-SWEEP_CELLS = (("cs1_paper", PAPER_MESH, 1), ("joule_600", JOULE_MESH, MAIN_NRHS))
+#: 9a's ring checks: (label, block, right-hand sides)
+RING_CELLS = (("cs1_paper", PAPER_MESH, 1), ("joule_600", JOULE_MESH, MAIN_NRHS))
 #: the spans 9b's trace.json must hold (one rank: no comm.halo.issue nor .ring)
 #: one rank: the second SpMV forms its own input (K1's axpy form), so no
 #: ``bicgstab.q_in`` opens
-OBS_SPANS = {"solve.krylov", "solve", "solve.cast_fields", "operator.build", "tuning.lookup",
+OBS_SPANS = {"solve.krylov", "solve", "solve.cast_fields", "operator.build",
              "krylov.init", "krylov.iteration", "krylov.flag_wait", "comm.halo.interior"}
 STENCIL_KERNEL = "stencil_nd_kernel"
 
 
-def sweep_cell(torch, label: str, shape, nrhs: int) -> dict:
-    """9a: sweep one cell into the active cache; one line per candidate."""
-    from repro_torch.core import stencil, tuning
+def stand_in_exchange(torch, v, spec, fabric):
+    """A finished depth-r halo exchange of ``v`` on ``fabric``, with no
+    collective: its padded interior is ``v``, the halo slabs of every split
+    axis carry seeded values (a neighbor's faces), the unsplit axes' halos
+    are zero (the global boundary)."""
+    from types import SimpleNamespace
 
+    r, nb = spec.radius, v.ndim - 3
+    gen = torch.Generator(device=v.device).manual_seed(2)
+    vp = torch.nn.functional.pad(v, (r, r) * 3)
+    for axis, name, n in fabric.split_info(3):
+        if name is None or n == 1:
+            continue
+        for side in (slice(0, r), slice(vp.shape[nb + axis] - r, None)):
+            reg = (slice(None),) * nb + tuple(side if i == axis else slice(None)
+                                              for i in range(3))
+            vp[reg] = torch.randn(vp[reg].shape, generator=gen, device=v.device).to(vp.dtype)
+    return SimpleNamespace(padded=vp, n_batch=nb, shape=tuple(v.shape[nb:]))
+
+
+def ring_forms_agree(torch, label: str, shape, nrhs: int) -> bool:
+    """9a: on a stand-in 2x2 exchange, the overlap schedule's split form (K1
+    on the bare block, then four ring-slab patches) equals one K1 launch
+    over the exchanged r-padded block (the blocking schedule's), bit for
+    bit."""
+    from repro_torch.core import stencil
+    from repro_torch.core.halo import FabricAxes
+    from repro_torch.kernels.stencil_nd.ops import _kernel, ring_patch_apply
+
+    spec, dt = stencil.STAR7, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cf_list = [((torch.rand(shape, generator=gen, device="cuda") - 0.5) * (2 / 6)).to(dt)
+               for _ in spec.names]
+    v = torch.randn(((nrhs,) if nrhs > 1 else ()) + tuple(shape), generator=gen,
+                    device="cuda").to(dt)
+    fabric = FabricAxes(nx=2, ny=2)
+    ex = stand_in_exchange(torch, v, spec, fabric)
+    launch = _kernel(ex.n_batch)
+    whole = launch(ex.padded, cf_list, spec.offsets, radius=spec.radius, accum_dtype=dt)
+    split = ring_patch_apply(ex, cf_list, spec,
+                             launch(v, cf_list, spec.offsets, radius=spec.radius,
+                                    accum_dtype=dt), fabric, accum_dtype=dt)
+    ok = torch.equal(split.view(torch.int16), whole.view(torch.int16))
+    del cf_list, v, ex, whole, split
     torch.cuda.empty_cache()
-    try:
-        rec = tuning.autotune_cell(stencil.STAR7, torch.bfloat16, shape, nrhs=nrhs,
-                                   device="cuda")
-    except RuntimeError as e:        # a candidate changed a bit
-        check(False, f"9a {label}: {e}")
-        return dict(cell=label, error=str(e))
-    torch.cuda.empty_cache()
-    rows = [dict(config=r["config"], ms=r["seconds"] * 1e3, bound_ms=rec["bound_s"] * 1e3,
-                 bound_share=r["bound_share"], bitwise_default=r["bitwise_default"])
-            for r in rec["swept"]]
-    for row in rows:
-        c = row["config"]
-        emit(f"9a {label} x{nrhs}: seg_len {c['seg_len']:4d} chunk {c['chunk']} "
-             f"fuse_ring {c['fuse_ring']!s:5}: {row['ms']:.3f} ms, bound {row['bound_ms']:.3f} "
-             f"ms, {row['bound_share']:.1%} of it; {rec['card']}")
-    check(not rec["cache_hit"] and rec["fabric"] == [1, 1, 1]
-          and all(r["bitwise_default"] and not r["config"]["fuse_ring"] for r in rows),
-          f"9a {label}: the sweep did not hold every plan to the default on one rank")
-    ring = ring_forms_agree(torch, shape, nrhs, [r["config"] for r in rows])
-    return dict(cell=label, key=rec["key"], card=rec["card"], nrhs=nrhs, shape=list(shape),
-                winner=rec["config"], default=rec["default_config"],
-                speedup_vs_default=rec["speedup_vs_default"], bound_ms=rec["bound_s"] * 1e3,
-                ring_forms_bitwise=ring, rows=rows)
-
-
-def ring_forms_agree(torch, shape, nrhs: int, configs: list[dict]) -> bool:
-    """9a: on a synthetic 2x2 exchange, each plan's fused ring form and its
-    split form (kernel on the zero-padded block, then four slab patches)
-    equal the default's split form bit for bit."""
-    import dataclasses
-
-    from repro_torch.core import stencil, tuning
-
-    spec = stencil.STAR7
-    problem = tuning.cell_problem(spec, torch.bfloat16, shape, nrhs=nrhs, device="cuda",
-                                  fabric=tuning.RING_FABRIC)
-    want = tuning.config_apply(problem, spec, tuning.KernelConfig.from_json(configs[0]))
-    ok = True
-    for c in configs:
-        cfg = tuning.KernelConfig.from_json(c)
-        for fuse in (False, True):
-            got = tuning.config_apply(problem, spec, dataclasses.replace(cfg, fuse_ring=fuse))
-            ok = ok and torch.equal(got.view(torch.int16), want.view(torch.int16))
-            del got
-    del problem, want
-    torch.cuda.empty_cache()
-    check(ok, f"9a {shape} x{nrhs}: a plan's fused and split ring forms differ on the 2x2 "
-              f"exchange")
+    check(ok, f"9a {label} x{nrhs}: the split ring form differs from one padded K1 launch "
+              f"on the 2x2 exchange")
+    emit(f"9a {label} x{nrhs}: split ring form = one padded K1 launch, bit for bit: {ok}")
     return ok
 
 
@@ -1913,13 +1900,12 @@ def read_jsonl(path: Path) -> list[dict]:
 
 
 def phase9(torch, smi: str, phase4: dict) -> dict:
-    """9a the sweep and the ``--autotune`` solve, 9b the ``--obs`` bundle,
-    9c the ``--profile`` trace, 9d the model (module docstring)."""
-    import os
+    """9a the ring forms, 9b the ``--obs`` bundle, 9c the ``--profile``
+    trace, 9d the model (module docstring)."""
     import shutil
     import tempfile
 
-    from repro_torch.core import perfmodel, tuning
+    from repro_torch.core import perfmodel
     from repro_torch.obs import manifest, trace
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_phase9_"))
@@ -1927,24 +1913,12 @@ def phase9(torch, smi: str, phase4: dict) -> dict:
             "bf16_mixed", "--tol", "0", "--maxiter", str(MAIN_ITERS)]
     out: dict = {}
     try:
-        # -- 9a: the sweep, then the CLI on the swept entry ---------------------
-        os.environ[tuning.ENV_VAR] = str(tmp / "tuning_cache_torch.json")
-        out["sweeps"] = [sweep_cell(torch, *cell) for cell in SWEEP_CELLS]
-        emit(dict(phase="autotune_sweep", card=smi,
-                  cells=[{k: v for k, v in c.items() if k != "rows"} for c in out["sweeps"]]))
-        torch.cuda.empty_cache()
-        res, counts = run_cli(mesh + ["--autotune"])
-        hit = res.get("autotune", {}).get("cache_hit", False)
-        check(hit, "9a: the --autotune solve did not hit the sweep's cache entry")
-        same_run("9a --autotune", res, counts, phase4)
-        out["autotune_solve"] = dict(cache_hit=hit, config=res.get("autotune", {}).get("config"),
-                                     ms_per_iter=res["ms_per_iter"],
-                                     rel_residual=res["rel_residual"], launches=counts)
-        emit(dict(phase="autotune_solve", card=smi, phase4_ms_per_iter=phase4["ms_per_iter"],
-                  **out["autotune_solve"]))
+        # -- 9a: the split ring form against one padded K1 launch -----------------
+        out["ring_forms"] = {f"{label}x{nrhs}": ring_forms_agree(torch, label, shape, nrhs)
+                             for label, shape, nrhs in RING_CELLS}
+        emit(dict(phase="ring_forms", card=smi, **out["ring_forms"]))
 
-        # -- 9b: the --obs bundle, on phase 4's plan -----------------------------
-        os.environ[tuning.ENV_VAR] = "off"
+        # -- 9b: the --obs bundle -------------------------------------------------
         torch.cuda.empty_cache()
         run_dir = tmp / "obs"
         res, counts = run_cli(mesh + ["--obs", "--run-dir", str(run_dir)])
@@ -2000,7 +1974,6 @@ def phase9(torch, smi: str, phase4: dict) -> dict:
                               launches=counts)
         emit(dict(phase="profile_bundle", card=smi, **out["profile"]))
     finally:
-        os.environ.pop(tuning.ENV_VAR, None)
         shutil.rmtree(tmp, ignore_errors=True)
 
     # -- 9d: the model against the measurement -----------------------------------
@@ -3255,11 +3228,11 @@ def p12_system(torch, shape, spec, dtype, nb: int, region, device):
 
 
 def p12_apply(torch, device) -> list[dict]:
-    """12a on every rank: the four-rank K1/K1b SpMV of each case in the
-    blocking, overlap-split and overlap-fused forms, their bits against
-    each other, and (on rank 0) the gathered output against the one-rank
-    K1 of the whole array."""
-    from repro_torch.core import dist, precision, stencil, tuning
+    """12a on every rank: the four-rank K1/K1b SpMV of each case under the
+    blocking and overlap schedules, their bits against each other, and (on
+    rank 0) the gathered output against the one-rank K1 of the whole
+    array."""
+    from repro_torch.core import dist, precision, stencil
     from repro_torch.core.comm import BLOCKING, OVERLAP
     from repro_torch.core.halo import FabricAxes, block_slices
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -3285,14 +3258,10 @@ def p12_apply(torch, device) -> list[dict]:
                 td.barrier()
                 mine = block_slices(fabric, shape)
                 cf, v = p12_system(torch, shape, spec, pol.storage, nb, mine, device)
-                ring = dataclasses.replace(tuning.default_config(
-                    spec, pol.storage, cf.shape, max(nb, 1)), fuse_ring=True)
                 forms, counts = {}, {}
-                for form, kw in (("blocking", dict(schedule=BLOCKING)),
-                                 ("overlap_split", dict(schedule=OVERLAP)),
-                                 ("overlap_fused", dict(schedule=OVERLAP, config=ring))):
+                for form, sched in (("blocking", BLOCKING), ("overlap_split", OVERLAP)):
                     reset_launch_counts()
-                    forms[form] = fused_local_apply(cf, v, fabric, policy=pol, **kw)
+                    forms[form] = fused_local_apply(cf, v, fabric, policy=pol, schedule=sched)
                     torch.cuda.synchronize()
                     counts[form] = {k: n for k, n in launch_counts().items() if n}
                 same = all(torch.equal(forms[f], forms["blocking"]) for f in forms)
@@ -3350,8 +3319,6 @@ def p12_cli(argv) -> tuple[dict, dict]:
 
 def p12_rank_part(torch, device, out_dir: Path) -> dict:
     """Everything phase 12 runs on each of four gloo ranks (12a, b, c, e, f)."""
-    import os
-
     from repro_torch.kernels import launch_counts
 
     out: dict = {}
@@ -3378,23 +3345,14 @@ def p12_rank_part(torch, device, out_dir: Path) -> dict:
     out["paper_mesh"] = res
     torch.cuda.empty_cache()
 
-    # 12f: --autotune across the ranks (rank 0 sweeps and writes, the others
-    # look its entry up), then a run that every rank finds in the cache, with
-    # --obs (rank 0 writes the bundle); its launches are the solve's alone
-    os.environ["REPRO_TORCH_TUNING_CACHE"] = str(out_dir / "tuning_cache.json")
-    flags = ["--mesh", *mesh, "--backend", "fused", "--policy", "bf16_mixed", "--tol", "0",
-             "--maxiter", str(MAIN_ITERS), "--autotune"]
-    sweep, _ = p12_cli(flags)
-    res, counts = p12_cli(flags + ["--obs", "--run-dir", str(out_dir / "bundle")])
+    # 12f: 12c's run under the blocking schedule (one K1 launch over the
+    # exchanged block per SpMV), with --obs (rank 0 writes the bundle)
+    res, counts = p12_cli(["--mesh", *mesh, "--backend", "fused", "--policy", "bf16_mixed",
+                           "--tol", "0", "--maxiter", str(MAIN_ITERS), "--schedule", "blocking",
+                           "--obs", "--run-dir", str(out_dir / "bundle")])
     keep = ("iterations", "rel_residual", "true_rel_residual", "ms_per_iter")
-    out["autotune"] = dict(launches=counts, cache_hit=res["autotune"]["cache_hit"],
-                           sweep_cache_hit=sweep["autotune"]["cache_hit"],
-                           config=sweep["autotune"]["config"],
-                           speedup_vs_default=sweep["autotune"].get("speedup_vs_default"),
-                           n_candidates=sweep["autotune"].get("n_candidates"),
-                           sweep_run={k: sweep[k] for k in keep},
-                           collectives=res["collectives"], **{k: res[k] for k in keep})
-    del os.environ["REPRO_TORCH_TUNING_CACHE"]
+    out["blocking"] = dict(launches=counts, collectives=res["collectives"],
+                           **{k: res[k] for k in keep})
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -3680,12 +3638,10 @@ def phase12(torch, smi: str, phase4: dict, ghia_centerline) -> dict:
             check(case["equal_one_rank"], f"{what}: the gathered SpMV differs from the "
                                           f"one-rank K1's bits")
             kern = "stencil_nd_batched" if case["nrhs"] else "stencil_nd"
-            want = {"blocking": {kern: 1}, "overlap_split": {kern: 5},
-                    "overlap_fused": {kern: 1}}
+            want = {"blocking": {kern: 1}, "overlap_split": {kern: 5}}
             for rec in recs:
                 c = rec["apply"][i]
-                check(c["forms_equal"], f"{what} rank {rec['rank']}: the schedules and ring "
-                                        f"forms differ")
+                check(c["forms_equal"], f"{what} rank {rec['rank']}: the schedules differ")
                 check(c["launches"] == want, f"{what} rank {rec['rank']}: launches "
                                              f"{c['launches']} != {want}")
         out["apply"] = [dict(c, launches_per_rank=[rec["apply"][i]["launches"] for rec in recs])
@@ -3745,24 +3701,14 @@ def phase12(torch, smi: str, phase4: dict, ghia_centerline) -> dict:
             phase4_ms_per_iter=phase4["ms_per_iter"])
         emit(dict(phase="ranks_paper_mesh", label=label, card=smi, **out["paper_mesh"]))
 
-        # 12f: --autotune and --obs across the ranks
-        tuned = [rec["autotune"] for rec in recs]
-        t0f = tuned[0]
-        check([t["sweep_cache_hit"] for t in tuned] == [False] + [True] * (P12_WORLD - 1),
-              f"12f: rank 0 must sweep and the others hit its entry: "
-              f"{[t['sweep_cache_hit'] for t in tuned]}")
-        check(all(t["cache_hit"] for t in tuned), f"12f: the second run must hit the cache "
-                                                  f"on every rank")
-        check(all(t["config"] == t0f["config"] for t in tuned), f"12f: configs differ: "
-                                                               f"{[t['config'] for t in tuned]}")
-        for run in (t0f["sweep_run"], t0f):
-            check(all(run[k] == res[k] for k in ("iterations", "rel_residual",
-                                                 "true_rel_residual")),
-                  f"12f: a tuned solve's residuals {run['rel_residual']!r}, "
-                  f"{run['true_rel_residual']!r} differ from 12c's")
-        fused_ring = bool(t0f["config"].get("fuse_ring"))
-        want_f = p12_expected(MAIN_ITERS, 0 if fused_ring else 4)
-        for rec, t in zip(recs, tuned):
+        # 12f: the blocking schedule and --obs across the ranks
+        blk = [rec["blocking"] for rec in recs]
+        check(all(blk[0][k] == res[k] for k in ("iterations", "rel_residual",
+                                                "true_rel_residual")),
+              f"12f: the blocking solve's residuals {blk[0]['rel_residual']!r}, "
+              f"{blk[0]['true_rel_residual']!r} differ from 12c's")
+        want_f = p12_expected(MAIN_ITERS, 0)
+        for rec, t in zip(recs, blk):
             check(t["launches"] == want_f, f"12f rank {rec['rank']}: launches {t['launches']} "
                                            f"!= {want_f}")
         bundle = out_dir / "bundle"
@@ -3778,15 +3724,11 @@ def phase12(torch, smi: str, phase4: dict, ghia_centerline) -> dict:
               f"12f manifest dist: {man.get('dist')}")
         check(len(coll) == 1 and coll[0].get("per_rank") == [want_c] * P12_WORLD,
               f"12f collectives events: {coll}")
-        out["autotune"] = dict(per_rank=tuned, fused_ring=fused_ring, bundle_files=files,
-                               manifest_dist=man.get("dist"),
+        out["blocking"] = dict(per_rank=blk, bundle_files=files, manifest_dist=man.get("dist"),
                                collectives=coll[0] if coll else None)
-        emit(dict(phase="ranks_autotune_obs", label=label, card=smi, config=t0f["config"],
-                  speedup_vs_default=t0f["speedup_vs_default"],
-                  n_candidates=t0f["n_candidates"],
-                  ms_per_iter=[t["ms_per_iter"] for t in tuned],
-                  sweep_ms_per_iter=[t["sweep_run"]["ms_per_iter"] for t in tuned],
-                  fused_ring=fused_ring,
+        emit(dict(phase="ranks_blocking_obs", label=label, card=smi,
+                  ms_per_iter=[t["ms_per_iter"] for t in blk],
+                  overlap_ms_per_iter=out["paper_mesh"]["ms_per_iter"],
                   manifest_dist=man.get("dist")))
 
         # 12e: the Ghia cavity on a 2x2 fabric
@@ -4755,7 +4697,7 @@ def main(argv=None) -> int:
     # -- phase 8: the solver and preconditioner stack --------------------------
     record["slice"] = phase8(torch, smi, record["paper_mesh"]["ms_per_iter"])
 
-    # -- phase 9: the tuning cache, observability and the performance model ----
+    # -- phase 9: the ring forms, observability and the performance model ------
     record["phase9"] = phase9(torch, smi, record["paper_mesh"])
 
     # -- phase 10: the SIMPLE CFD application ----------------------------------

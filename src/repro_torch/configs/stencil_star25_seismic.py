@@ -44,9 +44,8 @@ class StencilFamilyCell:
     precond: str = "none"                # core.precond.PRECONDS
     cheb_degree: int = 3                 # when precond == "chebyshev"
     schedule: str = "overlap"            # core.comm.SCHEDULES
-    autotune: bool = False               # launch.solve --autotune: sweep the
-    #                                      pallas kernel cell on first run,
-    #                                      then serve from the tuning cache
+    autotune: bool = False               # the JAX package's value; the port's
+    #                                      kernel has one launch plan
     nrhs: int = 1                        # right-hand sides per block solve
     #                                      (launch.solve --nrhs): >1 batches
     #                                      the whole Krylov iteration — halo
@@ -69,8 +68,8 @@ SEISMIC_CELLS = {
     "rtm_n1008_pipelined": StencilFamilyCell(
         "rtm_n1008_pipelined", (1008, 1008, 352), "star25",
         solver="pipelined_bicgstab", schedule="overlap"),
-    # the autotuned Pallas-backend variant: block shapes + ring-epilogue
-    # choice come from the persistent tuning cache (swept on first run)
+    # the JAX package's autotuned Pallas-backend variant (the port's fused
+    # backend runs it with the kernel's one launch plan)
     "rtm_chip_tuned": StencilFamilyCell("rtm_chip_tuned", (96, 96, 352),
                                         "star25", backend="pallas",
                                         autotune=True),

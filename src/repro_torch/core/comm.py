@@ -17,7 +17,7 @@ schedules reach the same kernel on the zero-padded block, and nothing is
 sent.
 
 Observability, at the JAX package's sites: spans ``comm.halo.issue``,
-``.blocking``, ``.fused_epilogue``, ``.interior`` and ``.ring``, and the
+``.blocking``, ``.interior`` and ``.ring``, and the
 ``comm.halo_exchanges`` counter.  In eager PyTorch they fire on every SpMV
 (the JAX package's fire once per trace), and their time is the host's.
 ``.issue`` and ``.ring`` open only where an axis is split: on the one-rank
@@ -74,14 +74,12 @@ def get_schedule(schedule, default: CommSchedule = OVERLAP) -> CommSchedule:
 class HaloExchange:
     """A started depth-r halo exchange.
 
-    ``padded`` is the r-padded block with halos filled.  With a split axis
-    the messages were posted when the exchange started (``post``), and the
-    first read of ``padded`` waits on them.  On the one-rank fabric nothing
+    ``padded`` is the r-padded block with its halos in place.  With a split
+    axis the messages were posted when the exchange started (``post``), and
+    the first read of ``padded`` waits on them.  On the one-rank fabric nothing
     travels, so the block is built on its first read: the overlap schedule
     with no boundary ring never reads it, and eager PyTorch (unlike XLA)
-    would not drop an unread copy.  ``filled`` hands in a block whose halos
-    are already in place (the tuning sweep's stand-in for a neighbor's
-    faces, ``core/tuning.py:synthetic_exchange``).
+    would not drop an unread copy.
     """
 
     v: torch.Tensor
@@ -89,7 +87,6 @@ class HaloExchange:
     radius: int
     corners: bool = False
     n_batch: int = 0
-    filled: torch.Tensor | None = None
     post: HaloPost | None = None
 
     @property
@@ -99,8 +96,6 @@ class HaloExchange:
 
     @functools.cached_property
     def padded(self) -> torch.Tensor:
-        if self.filled is not None:
-            return self.filled
         if self.post is not None:
             return self.post.wait()
         return gather_halo(self.v, self.fabric, self.radius,
@@ -151,8 +146,7 @@ def boundary_ring_apply(coeffs: StencilCoeffs, exchange: HaloExchange,
 
 def scheduled_apply(coeffs: StencilCoeffs, v: torch.Tensor, fabric: FabricAxes, *,
                     policy: Policy = F32, schedule: CommSchedule | str | None = None,
-                    full_fn=None, interior_fn=None, patch_fn=None,
-                    fused_fn=None) -> torch.Tensor:
+                    full_fn=None, interior_fn=None, patch_fn=None) -> torch.Tensor:
     """u = A v on the local shard under the given communication schedule.
 
     The one place the schedule's structure lives; backends customize how each
@@ -163,9 +157,7 @@ def scheduled_apply(coeffs: StencilCoeffs, v: torch.Tensor, fabric: FabricAxes, 
     * ``interior_fn(v) -> u``: the zero-Dirichlet apply run while the halo is
       in flight;
     * ``patch_fn(exchange, u) -> u``: overwrite the boundary ring from the
-      exchanged block;
-    * ``fused_fn(exchange) -> u``: one pass for interior and ring, replacing
-      the interior/patch pair.
+      exchanged block.
 
     For bitwise identity across schedules a backend's hooks accumulate terms
     in the canonical order (``StencilCoeffs.ordered_items``).
@@ -184,9 +176,6 @@ def scheduled_apply(coeffs: StencilCoeffs, v: torch.Tensor, fabric: FabricAxes, 
             return padded_apply(coeffs, vp, tuple(v.shape), policy=policy).to(policy.storage)
 
     exchange = start_halo_exchange(v, fabric, r, corners=spec.needs_corners, n_batch=nb)
-    if fused_fn is not None:
-        with obs_trace.span("comm.halo.fused_epilogue", stencil=spec.name):
-            return fused_fn(exchange)
     with obs_trace.span("comm.halo.interior", stencil=spec.name):
         u = interior_apply(coeffs, v, policy=policy) if interior_fn is None else interior_fn(v)
 

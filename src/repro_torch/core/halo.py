@@ -99,7 +99,7 @@ def _pad_axis(v: torch.Tensor, axis: int, r: int) -> torch.Tensor:
 
 class HaloPost:
     """A depth-r halo exchange whose messages are posted; :meth:`wait`
-    returns the r-padded block with every halo filled.
+    returns the r-padded block with every halo in place.
 
     Star stencils post every split axis at once.  Box stencils run the axes
     in mesh order on the progressively padded block: the first split axis
@@ -169,7 +169,7 @@ def is_split(fabric: FabricAxes, ndim: int) -> bool:
 
 def gather_halo(v: torch.Tensor, fabric: FabricAxes, radius: int = 1, *,
                 corners: bool = False, n_batch: int = 0) -> torch.Tensor:
-    """The local block padded by ``radius`` on every mesh axis, halos filled.
+    """The local block padded by ``radius`` on every mesh axis, halos in place.
 
     Split axes exchange depth-r slabs with the neighbouring ranks (star:
     independently, corners zero; box, ``corners=True``: in sequence, corners

@@ -182,20 +182,14 @@ def fused_operator(coeffs: StencilCoeffs, fabric: FabricAxes | None = None, *,
     partials; one BiCGStab iteration is kernels plus 3 sync points.  An
     operand with a leading batch axis runs the batched kernels, all right-
     hand sides in one launch.  On CPU tensors every kernel takes its plain
-    version.
-
-    The stencil kernel's config comes from the tuning cache, looked up once
-    here (keyed by the card, spec, storage dtype and block, so the batch
-    size need not be known yet): a cached entry is passed to every launch,
-    and without one (or with a stale one) the kernel keeps its default plan
-    for whatever batch it is given.
+    version.  The stencil kernel cuts each launch by its own plan
+    (``kernels/stencil_nd/kernel.py:launch_plan``); nothing is looked up here.
 
     ``apply_axpy`` is the stencil kernel's form that stages its own input
     ``r - st(alpha) s`` (``kernels/stencil_nd/kernel.py:stencil_nd_axpy``),
     set where that input need not exist in memory: one rank (no halo to
     exchange), the family's unit diagonal, and a Z the kernel's 16-B staging
     takes; it runs on unbatched operands only."""
-    from repro_torch.core import tuning
     from repro_torch.kernels.fused_iter import dot_mixed, update_p, update_q_dots, update_xr_dots
     from repro_torch.kernels.stencil_nd.kernel import axpy_staged, stencil_nd_axpy
     from repro_torch.kernels.stencil_nd.ops import fused_local_apply
@@ -208,10 +202,8 @@ def fused_operator(coeffs: StencilCoeffs, fabric: FabricAxes | None = None, *,
                                                           mesh_ndim=cf.ndim)
 
     cf_unit = StencilCoeffs(cf.diags)   # the kernel's unit-diagonal contract
-    device = next(iter(cf.diags.values())).device
-    config = tuning.cached_config(cf.spec, policy.storage, cf.shape, device=device)
     base_apply = lambda v: fused_local_apply(cf_unit, v, fabric, policy=policy,
-                                             schedule=sched, config=config)
+                                             schedule=sched)
     if cf.diag is None:
         apply = base_apply
     else:
@@ -231,7 +223,7 @@ def fused_operator(coeffs: StencilCoeffs, fabric: FabricAxes | None = None, *,
         def apply_axpy(alpha, r, s):
             return stencil_nd_axpy(alpha, r.contiguous(), s.contiguous(), cf_list,
                                    spec.offsets, radius=spec.radius,
-                                   accum_dtype=policy.compute, config=config)
+                                   accum_dtype=policy.compute)
 
     batched = lambda a: a.ndim > cf.ndim
     dot_partial = lambda a, b: dot_mixed(a, b, batched=batched(a))

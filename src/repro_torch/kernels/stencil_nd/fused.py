@@ -1,12 +1,7 @@
-"""Fused epilogues: the overlap schedule's boundary-ring fold, and the 7-point
-SpMV with a dot epilogue (CUDA source: ``kernels/csrc/stencil7_dot.cu``).
+"""Fused epilogues: the 7-point SpMV with a dot epilogue (CUDA source:
+``kernels/csrc/stencil7_dot.cu``).
 
 Counterpart of ``repro/kernels/stencil_nd/fused.py``.
-
-**Boundary-ring fold** (:func:`fused_ring_apply`): the overlap schedule's
-split form runs the stencil kernel on the zero-padded block and once more
-per boundary region; the fused form runs it once over the exchanged block.
-The tuning cache picks the form per cell (``KernelConfig.fuse_ring``).
 
 **Dot epilogues**, the kernel behind ``core/bicgstab.py:solve_ref_fused``:
 
@@ -23,8 +18,7 @@ block: a CPU tensor takes the plain version
 (``ref.stencil7_dots_padded_ref``), a CUDA tensor launches the kernel or
 raises.  K6 keeps its fixed plan (the star7 ``launch_plan`` for one RHS):
 its dot partials are one per block, so another plan would sum them in
-another order, and the JAX package's K6 does not read the tuning cache
-either.
+another order.
 """
 
 from __future__ import annotations
@@ -43,25 +37,6 @@ from repro_torch.kernels.stencil_nd.ref import stencil7_dots_padded_ref
 ORDER = STAR7.names
 #: kernel launches in this process (CUDA tensors only), both variants
 launches = {"stencil7_dot": 0}
-
-
-def fused_ring_apply(exchange, cf_list: list[torch.Tensor], spec, config, *,
-                     accum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """One-launch overlapped SpMV: interior and boundary ring in one pass of
-    the stencil kernel over the *exchanged* r-padded block.
-
-    Bitwise the split form (interior kernel + ring patches): a cell off the
-    ring never reads a halo value, so its sum is the same over the
-    zero-padded and the exchanged block, and a ring cell sums exactly the
-    terms the patch kernel sums from the same slabs.  One launch per SpMV,
-    where the split form makes 1 + one per boundary region."""
-    from repro_torch.kernels.stencil_nd.kernel import stencil_nd, stencil_nd_batched
-
-    if exchange.radius != spec.radius:
-        raise ValueError(f"exchange radius {exchange.radius} != spec radius {spec.radius}")
-    launch = stencil_nd_batched if exchange.n_batch else stencil_nd
-    return launch(exchange.padded, cf_list, spec.offsets, radius=spec.radius,
-                  accum_dtype=accum_dtype, config=config)
 
 
 def stencil7_dots_padded(vp: torch.Tensor, w: torch.Tensor | None, cfs: list[torch.Tensor], *,

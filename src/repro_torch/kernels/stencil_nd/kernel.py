@@ -12,9 +12,8 @@ picks the path: a CPU tensor takes the plain version
 padded form, :func:`~repro_torch.kernels.stencil_nd.ref.stencil_nd_ref` for
 the bare one), a CUDA tensor launches the kernel or raises.  Both wrappers
 launch one CUDA kernel (the unbatched one with B = 1), cut into tiles, x
-segments and RHS chunks by :func:`launch_plan`: today's plan, or a tuning
-config's x segment and RHS chunk (``core/tuning.py:KernelConfig``, checked
-here before any launch).  Every plan gives the same bits.
+segments and RHS chunks by :func:`launch_plan`, the one place that decides
+the cut.  Every plan gives the same bits.
 :func:`stencil_nd_axpy` is BiCGStab's second SpMV with its input unformed:
 ``A (r - st(alpha) s)``, the kernel forming each plane of the input as it
 stages it, so that input never reaches device memory.  ``launches`` counts
@@ -43,7 +42,6 @@ THREADS_Z = 16               # kTZT: threads along z, each on one 16-B vector
 TARGET_BLOCKS = 132 * 16     # blocks to aim for: 16 per SM of an H100
 MIN_SEGMENT = 8              # fewest x planes a segment marches (each re-reads 2r)
 SMEM_BYTES = 232448          # shared memory one block may use (227 KB)
-MAX_GRID_X, MAX_GRID_YZ = 2 ** 31 - 1, 65535
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,37 +77,16 @@ def compiled_tile(itemsize: int) -> tuple[int, int]:
     return TILE_Y, THREADS_Z * (16 // itemsize)
 
 
-def config_error(config, shape: tuple[int, int, int], n_off: int, radius: int,
-                 itemsize: int) -> str | None:
-    """Why the kernel cannot run ``config`` on a ``shape`` block, or None.
-
-    The kernel takes only its compiled tile (``stencil_nd.cu`` refuses any
-    other), an x segment of 1 to bx planes in at most 65535 segments, and an
-    RHS chunk it has an instance for: 1 or the family spec's maximum
-    (``dispatch_chunk``)."""
-    tile = compiled_tile(itemsize)
-    if tuple(config.tile) != tile:
-        return f"tile {tuple(config.tile)} is not the compiled {tile}"
-    if not 1 <= config.seg_len <= shape[0] or -(-shape[0] // config.seg_len) > MAX_GRID_YZ:
-        return f"x segment {config.seg_len} does not cut bx = {shape[0]}"
-    if config.chunk not in (1, FAMILY[(n_off, radius)][1]):
-        return (f"RHS chunk {config.chunk} has no kernel instance (1 or "
-                f"{FAMILY[(n_off, radius)][1]})")
-    return None
-
-
 def launch_plan(shape: tuple[int, int, int], nb: int, n_off: int, radius: int,
-                itemsize: int, config=None, *, axpy: bool = False) -> LaunchPlan:
+                itemsize: int, *, axpy: bool = False) -> LaunchPlan:
     """The stencil kernel's launch plan for a ``shape`` block, ``nb`` RHS, a
     family spec of ``n_off`` offsets and ``radius``, and ``itemsize``-byte
     storage (counterpart of ``repro``'s ``_valid_tile``).  The tile is the
-    compiled one (:func:`compiled_tile`).  ``config`` (a tuning
-    ``KernelConfig``) sets the x segment, and the RHS chunk when ``nb`` is
-    the batch it was chosen for (another batch keeps its default chunk);
-    without one the plan aims at ``TARGET_BLOCKS`` blocks.  ``axpy``: the
-    form that stages ``r - st(alpha) s`` (:func:`stencil_nd_axpy`), whose
-    shared memory holds one more plane, of ``s``.  An invalid config
-    raises."""
+    compiled one (:func:`compiled_tile`), the RHS chunk 1 for one RHS and
+    the family's maximum otherwise, and the x segments aim at
+    ``TARGET_BLOCKS`` blocks.  ``axpy``: the form that stages
+    ``r - st(alpha) s`` (:func:`stencil_nd_axpy`), whose shared memory
+    holds one more plane, of ``s``."""
     if (n_off, radius) not in FAMILY:
         raise ValueError(f"the stencil kernel is built for the family specs {sorted(FAMILY)} "
                          f"(offsets, radius); got ({n_off}, {radius})")
@@ -119,25 +96,15 @@ def launch_plan(shape: tuple[int, int, int], nb: int, n_off: int, radius: int,
     r = radius
     vz = 16 // itemsize
     ty, tz = compiled_tile(itemsize)
-    if config is not None:
-        problem = config_error(config, shape, n_off, r, itemsize)
-        if problem:
-            raise ValueError(f"stencil kernel config {config}: {problem}")
-    if config is not None and nb == config.nrhs:
-        chunk = config.chunk
-    else:
-        chunk = 1 if nb == 1 else FAMILY[(n_off, r)][1]
+    chunk = 1 if nb == 1 else FAMILY[(n_off, r)][1]
     tiles_y, tiles_z = -(-by // ty), -(-z // tz)
     chunks = -(-nb // chunk)
     # shared memory: a ring of 2r+2 planes of (ty+2r) rows, pitch tz + 2 vz, per RHS,
     # and the axpy form's plane of s
     plane = (ty + 2 * r) * (tz + 2 * vz) * itemsize
     smem = (min(chunk, nb) * (2 * r + 2) + int(axpy)) * plane
-    if config is not None:
-        seg_len = config.seg_len
-    else:
-        want = -(-TARGET_BLOCKS // (tiles_y * tiles_z * chunks))
-        seg_len = min(bx, max(MIN_SEGMENT, -(-bx // want)))
+    want = -(-TARGET_BLOCKS // (tiles_y * tiles_z * chunks))
+    seg_len = min(bx, max(MIN_SEGMENT, -(-bx // want)))
     return LaunchPlan(ty=ty, tz=tz, seg_len=seg_len, chunk=chunk, tiles_y=tiles_y,
                       tiles_z=tiles_z, segments=-(-bx // seg_len), chunks=chunks,
                       smem_bytes=smem)
@@ -187,15 +154,11 @@ def _check(what: str, vp: torch.Tensor, coeffs: list[torch.Tensor], offsets, r: 
 
 
 def _apply(what: str, vp: torch.Tensor, coeffs: list[torch.Tensor], offsets, r: int,
-           accum_dtype: torch.dtype, batched: bool, config) -> torch.Tensor:
-    """The plain version on a CPU tensor (``config`` is planned anyway: it
-    is refused on either device), else check, plan, allocate ``u`` and
-    launch; B = 1 for the unbatched form."""
+           accum_dtype: torch.dtype, batched: bool) -> torch.Tensor:
+    """The plain version on a CPU tensor, else check, plan, allocate ``u``
+    and launch; B = 1 for the unbatched form."""
     if vp.device.type == "cpu":
-        shape, bare = _form(what, vp, coeffs, r, int(batched))
-        if config is not None:
-            launch_plan(shape, vp.shape[0] if batched else 1, len(offsets), r,
-                        vp.element_size(), config)
+        _, bare = _form(what, vp, coeffs, r, int(batched))
         if bare:
             return stencil_nd_ref(vp, coeffs, offsets, accum_dtype=accum_dtype)
         return stencil_nd_padded_ref(vp, coeffs, offsets, radius=r, accum_dtype=accum_dtype)
@@ -203,7 +166,7 @@ def _apply(what: str, vp: torch.Tensor, coeffs: list[torch.Tensor], offsets, r: 
     nb = vp.shape[0] if batched else 1
     if not 1 <= nb <= _build.MAX_BATCH:
         raise ValueError(f"{what} takes 1..{_build.MAX_BATCH} right-hand sides, got {nb}")
-    plan = launch_plan(shape, nb, len(offsets), r, vp.element_size(), config)
+    plan = launch_plan(shape, nb, len(offsets), r, vp.element_size())
     lib = _build.load_library()
     u = torch.empty(vp.shape[:int(batched)] + shape, dtype=vp.dtype, device=vp.device)
     ptrs = (ctypes.c_uint64 * len(coeffs))(*(c.data_ptr() for c in coeffs))
@@ -220,7 +183,7 @@ def _apply(what: str, vp: torch.Tensor, coeffs: list[torch.Tensor], offsets, r: 
 
 def stencil_nd(vp: torch.Tensor, coeffs: list[torch.Tensor],
                offsets: tuple[tuple[int, int, int], ...], *, radius: int,
-               accum_dtype: torch.dtype = torch.float32, config=None) -> torch.Tensor:
+               accum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """u = A v on one block.
 
     ``vp``: the bare ``(bx, by, Z)`` iterate, zero outside the block, or the
@@ -230,9 +193,9 @@ def stencil_nd(vp: torch.Tensor, coeffs: list[torch.Tensor],
     diagonal is implicit; products and sums run in ``accum_dtype`` and the
     result has ``vp``'s dtype.  The bare form equals the padded form on the
     zero-padded block bit for bit.  The kernel is the batched one with B = 1,
-    cut by :func:`launch_plan` under ``config`` (None: today's plan).
+    cut by :func:`launch_plan`.
     """
-    return _apply("stencil_nd", vp, coeffs, offsets, radius, accum_dtype, False, config)
+    return _apply("stencil_nd", vp, coeffs, offsets, radius, accum_dtype, False)
 
 
 def axpy_staged(shape: tuple[int, ...], itemsize: int) -> bool:
@@ -244,8 +207,7 @@ def axpy_staged(shape: tuple[int, ...], itemsize: int) -> bool:
 
 def stencil_nd_axpy(alpha: torch.Tensor, r: torch.Tensor, s: torch.Tensor,
                     coeffs: list[torch.Tensor], offsets: tuple[tuple[int, int, int], ...], *,
-                    radius: int, accum_dtype: torch.dtype = torch.float32,
-                    config=None) -> torch.Tensor:
+                    radius: int, accum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """y = A q with q = r - st(alpha) s: BiCGStab's second SpMV on one bare
     block, its input formed by the kernel as it stages each plane.
 
@@ -266,7 +228,7 @@ def stencil_nd_axpy(alpha: torch.Tensor, r: torch.Tensor, s: torch.Tensor,
         raise ValueError(f"stencil_nd_axpy takes the bare block {shape}; got {tuple(r.shape)}")
     if r.device.type == "cpu":
         return stencil_nd(r - alpha.to(r.dtype) * s, coeffs, offsets, radius=radius,
-                          accum_dtype=accum_dtype, config=config)
+                          accum_dtype=accum_dtype)
     for v in (r, s):
         _check("stencil_nd_axpy", v, coeffs, offsets, radius, 0)
     if not axpy_staged(shape, r.element_size()) or r.data_ptr() % 16 or s.data_ptr() % 16:
@@ -276,7 +238,7 @@ def stencil_nd_axpy(alpha: torch.Tensor, r: torch.Tensor, s: torch.Tensor,
     if alpha.dtype != torch.float32 or alpha.numel() != 1 or alpha.device != r.device:
         raise ValueError(f"stencil_nd_axpy takes alpha as one f32 on {r.device}; got "
                          f"{alpha.dtype}{tuple(alpha.shape)} on {alpha.device}")
-    plan = launch_plan(shape, 1, len(offsets), radius, r.element_size(), config, axpy=True)
+    plan = launch_plan(shape, 1, len(offsets), radius, r.element_size(), axpy=True)
     lib = _build.load_library()
     alpha = alpha.contiguous()
     u = torch.empty(shape, dtype=r.dtype, device=r.device)
@@ -293,7 +255,7 @@ def stencil_nd_axpy(alpha: torch.Tensor, r: torch.Tensor, s: torch.Tensor,
 
 def stencil_nd_batched(vp: torch.Tensor, coeffs: list[torch.Tensor],
                        offsets: tuple[tuple[int, int, int], ...], *, radius: int,
-                       accum_dtype: torch.dtype = torch.float32, config=None) -> torch.Tensor:
+                       accum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """u[b] = A v[b] for a batch of B right-hand sides in one launch.
 
     ``vp``: ``(B, bx, by, Z)`` bare or ``(B, bx+2r, by+2r, Z+2r)`` padded;
@@ -302,4 +264,4 @@ def stencil_nd_batched(vp: torch.Tensor, coeffs: list[torch.Tensor],
     bit for bit.  B runs from 1 to ``_build.MAX_BATCH`` (65535); the offsets
     as for :func:`stencil_nd`.
     """
-    return _apply("stencil_nd_batched", vp, coeffs, offsets, radius, accum_dtype, True, config)
+    return _apply("stencil_nd_batched", vp, coeffs, offsets, radius, accum_dtype, True)

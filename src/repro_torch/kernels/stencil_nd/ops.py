@@ -7,19 +7,11 @@ leading axis more than the coefficients is a batch of right-hand sides
 kernel runs them all in one launch.  A zero-Dirichlet apply hands the kernel
 the bare block, whose zero halo it stages itself (the JAX wrapper pads
 first); only an exchanged block, with its neighbours' halo, is padded.
-
-Every apply takes an optional tuning ``config`` (``core/tuning.py:
-KernelConfig``): the kernel's x segment and RHS chunk, and, for the overlap
-schedule, whether the boundary ring is folded into one pass
-(``fuse_ring``).  ``None`` is today's launch plan.  ``core.operator.
-fused_operator`` looks the config up in the tuning cache once, when it is
-built, and passes it down.  Any valid config gives the same bits: each
-output is a canonical-order sum over the offsets, whatever the plan.
+Every launch is cut by the kernel's own plan
+(``kernels/stencil_nd/kernel.py:launch_plan``), from the shape it is given.
 """
 
 from __future__ import annotations
-
-import dataclasses
 
 import torch
 
@@ -56,23 +48,22 @@ def _kernel(nb: int):
 
 def stencil_apply(coeffs: StencilCoeffs, v: torch.Tensor, *,
                   spec: StencilSpec | None = None,
-                  accum_dtype: torch.dtype = torch.float32, config=None) -> torch.Tensor:
+                  accum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """u = A v on a local block, zero-Dirichlet at the block edges, any spec."""
     _require_unit_diag(coeffs)
     nb = _batch_rank(v, coeffs)
     spec = spec or coeffs.spec
     return _kernel(nb)(v.contiguous(), _spec_order(coeffs, spec), spec.offsets,
-                       radius=spec.radius, accum_dtype=accum_dtype, config=config)
+                       radius=spec.radius, accum_dtype=accum_dtype)
 
 
 def ring_patch_apply(exchange, cf_list: list[torch.Tensor], spec: StencilSpec,
                      u: torch.Tensor, fabric, *,
-                     accum_dtype: torch.dtype = torch.float32, config=None) -> torch.Tensor:
+                     accum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The overlap epilogue: re-run the kernel on the exchanged depth-r ring
     slabs and overwrite the ring of ``u`` in place (``u`` is the interior
-    kernel's fresh output).  One extra launch per boundary region; none on a
-    one-rank fabric.  A slab takes ``config``'s RHS chunk and an x segment
-    no longer than the slab."""
+    kernel's fresh output).  One extra launch per boundary region, each
+    planned from its slab's shape; none on a one-rank fabric."""
     from repro_torch.core.comm import boundary_regions
 
     r = spec.radius
@@ -81,33 +72,27 @@ def ring_patch_apply(exchange, cf_list: list[torch.Tensor], spec: StencilSpec,
         lo_hi = [(sl.start or 0, exchange.shape[i] if sl.stop is None else sl.stop)
                  for i, sl in enumerate(reg)]
         sub_vp = exchange.padded[pre + tuple(slice(lo, hi + 2 * r) for lo, hi in lo_hi)]
-        sub_cfg = config and dataclasses.replace(
-            config, seg_len=min(config.seg_len, lo_hi[0][1] - lo_hi[0][0]))
         u[pre + reg] = _kernel(exchange.n_batch)(
             sub_vp.contiguous(), [c[reg].contiguous() for c in cf_list], spec.offsets,
-            radius=r, accum_dtype=accum_dtype, config=sub_cfg)
+            radius=r, accum_dtype=accum_dtype)
     return u
 
 
 def fused_local_apply(coeffs: StencilCoeffs, v: torch.Tensor, fabric, *, policy,
-                      schedule=None, config=None) -> torch.Tensor:
+                      schedule=None) -> torch.Tensor:
     """Drop-in for ``core.halo.local_apply``: the depth-r halo exchange feeding
     the stencil kernel, under either communication schedule (counterpart of
     ``pallas_local_apply``).
 
     ``blocking``: the kernel runs once over the assembled halo'd block.
-    ``overlap``: the exchange starts first; then either the kernel runs on
-    the bare block (the interior, which waits on no neighbor; the kernel
-    stages the zero halo, so no padded copy is made) and the boundary ring
-    is patched from the exchanged block, or, with
-    ``config.fuse_ring``, one pass runs over the exchanged block
-    (:func:`~repro_torch.kernels.stencil_nd.fused.fused_ring_apply`).  All
-    forms accumulate the same canonical-order terms, so they agree bitwise.
-    Products and sums run in ``policy.compute``: under ``bf16_mixed`` the
-    SpMV accumulates in bf16.
+    ``overlap``: the exchange starts first; the kernel runs on the bare
+    block (the interior, which waits on no neighbor; the kernel stages the
+    zero halo, so no padded copy is made), and the boundary ring is patched
+    from the exchanged block.  Both forms accumulate the same
+    canonical-order terms, so they agree bitwise.  Products and sums run in
+    ``policy.compute``: under ``bf16_mixed`` the SpMV accumulates in bf16.
     """
     from repro_torch.core import comm
-    from repro_torch.kernels.stencil_nd.fused import fused_ring_apply
 
     _require_unit_diag(coeffs)
     spec = coeffs.spec
@@ -118,22 +103,14 @@ def fused_local_apply(coeffs: StencilCoeffs, v: torch.Tensor, fabric, *, policy,
     cf_list = _spec_order(cf, spec)
 
     def kernel(block):          # bare (the interior) or padded (the assembled halo)
-        return launch(block, cf_list, spec.offsets, radius=r, accum_dtype=policy.compute,
-                      config=config)
+        return launch(block, cf_list, spec.offsets, radius=r, accum_dtype=policy.compute)
 
     def patch_ring(exchange, u):
         return ring_patch_apply(exchange, cf_list, spec, u, fabric,
-                                accum_dtype=policy.compute, config=config)
-
-    fused_fn = None
-    if config is not None and config.fuse_ring:
-        def fused_fn(exchange):
-            return fused_ring_apply(exchange, cf_list, spec, config,
-                                    accum_dtype=policy.compute)
+                                accum_dtype=policy.compute)
 
     return comm.scheduled_apply(
         cf, vs, fabric, policy=policy, schedule=schedule,
         full_fn=kernel,
         interior_fn=kernel,
-        patch_fn=patch_ring,
-        fused_fn=fused_fn)
+        patch_fn=patch_ring)

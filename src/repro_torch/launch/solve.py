@@ -9,7 +9,6 @@ a ``torchrun`` group.
     PYTHONPATH=src python -m repro_torch.launch.solve --solver cg --backend fused
     PYTHONPATH=src python -m repro_torch.launch.solve --precond chebyshev --problem poisson
     PYTHONPATH=src python -m repro_torch.launch.solve --refine
-    PYTHONPATH=src python -m repro_torch.launch.solve --backend fused --autotune
     PYTHONPATH=src python -m repro_torch.launch.solve --backend fused --obs --run-dir /tmp/run
     PYTHONPATH=src python -m repro_torch.launch.solve --backend fused --profile --maxiter 5
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.solve \
@@ -27,10 +26,7 @@ iterations, the recurrence and true residuals, the time per iteration on the
 device it ran on, the collectives the solve ran, and the achieved share of
 the card's f32 peak.  ``--nrhs B`` solves B right-hand sides as one block
 solve and reports each RHS's numbers; ``--refine`` runs 16-bit inner solves
-under f32 iterative refinement instead.  ``--autotune`` sweeps the stencil
-kernel's launch plans for this cell on the card when the tuning cache has no
-entry (``REPRO_TORCH_TUNING_CACHE`` or ``results/tuning_cache_torch.json``).
-``--obs`` records spans and metrics into a run bundle
+under f32 iterative refinement instead.  ``--obs`` records spans and metrics into a run bundle
 (``results/runs/<run_id>/`` or ``--run-dir``), and ``--profile`` adds a
 ``torch.profiler`` trace in ``<run_dir>/torch_profile``.  It runs on the card
 unless ``--device cpu`` is given, and refuses to start without one.
@@ -168,11 +164,6 @@ def build_parser() -> argparse.ArgumentParser:
                          "random for box, poisson for --solver cg/pipelined_cg; "
                          "heterogeneous is the raw variable-diagonal case where "
                          "--precond jacobi does work")
-    ap.add_argument("--autotune", action="store_true",
-                    help="sweep the stencil kernel's launch plans for this cell on the card "
-                         "if the tuning cache has no entry, then solve with the winner "
-                         "(cache: REPRO_TORCH_TUNING_CACHE or "
-                         "results/tuning_cache_torch.json)")
     ap.add_argument("--nrhs", type=int, default=1,
                     help="right-hand sides solved as one block (batched) Krylov solve; "
                          "every sync point reduces the stacked [k, B] partials")
@@ -217,10 +208,6 @@ def main(argv=None) -> dict:
         if (args.solver, args.backend, args.precond) != ("bicgstab", "spmd", "none"):
             raise SystemExit("--refine drives its own inner bicgstab/spmd solves and does "
                              "not honor --solver/--backend/--precond; drop those flags")
-    if args.autotune and args.device == "cpu":
-        raise SystemExit("--autotune times the CUDA stencil kernel with CUDA events and needs "
-                         "the card; on the CPU only the plain version runs. Drop --autotune "
-                         "or --device cpu")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device (torch.cuda.is_available() is False); "
                          "pass --device cpu to run on the CPU")
@@ -331,27 +318,6 @@ def rank_system(problem: str | None, spec: stencil.StencilSpec, shape, fabric: F
     return name, cf, scatter(xt, (nrhs,) if nrhs > 1 else ())
 
 
-def _autotune(spec, pol, shape, mesh, nrhs: int, device: torch.device) -> dict:
-    """``--autotune``: sweep (or find in the cache) the kernel cell the
-    fused operator will look up, the local block under this fabric in the
-    storage dtype, timed on this fabric.  On more ranks rank 0 sweeps and
-    writes the cache, and the others look the entry up after a barrier."""
-    from repro_torch.core import tuning
-
-    fabric = FabricAxes.from_mesh(mesh)
-    local = (shape[0] // fabric.nx, shape[1] // fabric.ny, shape[2] // fabric.nz)
-    tune = lambda: tuning.ensure_tuned(spec, pol.storage, local, nrhs=nrhs, fabric=fabric,
-                                       device=device)
-    rec = tune() if dist.is_root() else None
-    if fabric.size > 1:
-        dist.barrier()
-        rec = rec or tune()
-    note = "cache hit" if rec["cache_hit"] else (
-        f"swept {rec['n_candidates']} configs, {rec['speedup_vs_default']:.3f}x the default")
-    print(f"autotune[{rec['key']}]: {note}, config={rec['config']}")
-    return rec
-
-
 def _check_divides(shape, mesh) -> FabricAxes:
     fabric = FabricAxes.from_mesh(mesh)
     for (dim, _, n), m in zip(fabric.split_info(len(shape)), shape):
@@ -368,7 +334,6 @@ def run(args: argparse.Namespace, device: torch.device) -> dict:
     mesh = make_mesh_for_devices()
     fabric = _check_divides(shape, mesh)
     ranks = fabric.size > 1
-    tuned = _autotune(spec, pol, shape, mesh, args.nrhs, device) if args.autotune else None
     t0 = time.perf_counter()
     if ranks:
         problem, cf, x_true = rank_system(args.problem, spec, shape, fabric, seed=args.seed,
@@ -425,8 +390,6 @@ def run(args: argparse.Namespace, device: torch.device) -> dict:
                iterations=res.iterations.tolist(), converged=res.converged.tolist(),
                breakdown=res.breakdown.tolist(), rel_residual=res.rel_residual.tolist(),
                wall_s=dt, collectives=collectives, **setup)
-    if tuned is not None:
-        out["autotune"] = tuned
     most = max(out["iterations"]) if args.nrhs > 1 else out["iterations"]
     out["ms_per_iter"] = dt / max(most, 1) * 1e3
     if ranks:

@@ -8,8 +8,8 @@ Counterpart of ``repro/obs``, in three small modules that import nothing of
   ``profile`` around ``torch.profiler``;
 * :mod:`repro_torch.obs.metrics`: a process-local registry of counters,
   gauges, histograms and structured events (solver iterations, per-RHS
-  convergence, executed AllReduce counts, kernel launches, tuning-cache
-  hits, the achieved share of peak);
+  convergence, executed AllReduce counts, kernel launches, the achieved
+  share of peak);
 * :mod:`repro_torch.obs.manifest`: run bundles under
   ``results/runs/<run_id>/{manifest.json,events.jsonl,trace.json}`` in the
   JAX package's ``repro.obs.v1`` schema, so ``scripts/compare_runs.py``

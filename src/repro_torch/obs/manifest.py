@@ -40,7 +40,7 @@ PROFILE_DIR = "torch_profile"
 
 # Environment variables that change which card runs, how memory is held,
 # or which kernel plans are used.
-_ENV_KEYS = ("CUDA_VISIBLE_DEVICES", "PYTORCH_CUDA_ALLOC_CONF", "REPRO_TORCH_TUNING_CACHE")
+_ENV_KEYS = ("CUDA_VISIBLE_DEVICES", "PYTORCH_CUDA_ALLOC_CONF")
 
 _REQUIRED_FIELDS = ("schema", "run_id", "kind", "created_unix", "created",
                     "argv", "config", "git", "versions", "devices", "env",

@@ -3,8 +3,7 @@
 Counterpart of ``repro/obs/metrics.py``, with its semantics.  One global
 :class:`Registry` collects what a run emits: solver iterations and per-RHS
 convergence (from a ``SolveResult``), residual histories, collective counts,
-kernel launch counts, tuning-cache lookups, and the achieved share of the
-card's peak.  The registry is always on (a counter bump is a dict lookup and
+kernel launch counts, and the achieved share of the card's peak.  The registry is always on (a counter bump is a dict lookup and
 an integer add); spans are the opt-in part of observability.
 
 Two departures from the JAX package, both because nothing is traced here:

@@ -10,6 +10,7 @@ import os
 import subprocess
 import sys
 import textwrap
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -46,6 +47,34 @@ def carry_coeffs(cf_jax):
     return StencilCoeffs.from_numpy(
         {n: np.asarray(a) for n, a in cf_jax.diags.items()},
         None if cf_jax.diag is None else np.asarray(cf_jax.diag), device="cpu")
+
+
+class StandInExchange(NamedTuple):
+    """What ``ring_patch_apply`` reads of a finished halo exchange
+    (``repro_torch/core/comm.py:HaloExchange``)."""
+    padded: torch.Tensor
+    n_batch: int
+    shape: tuple[int, ...]
+
+
+def synthetic_exchange(v: torch.Tensor, spec, fabric, *,
+                       generator: torch.Generator | None = None) -> StandInExchange:
+    """A stand-in for a finished depth-r halo exchange of ``v`` on ``fabric``,
+    with no collective: the padded interior is ``v`` bit for bit, the halo
+    slabs of every split fabric axis carry values (random, standing in for a
+    neighbour's faces), and the unsplit axes' halos stay zero (the global
+    Dirichlet boundary).  ``v`` may carry a leading batch axis."""
+    r, nb = spec.radius, v.ndim - 3
+    gen = generator or torch.Generator(device=v.device).manual_seed(2)
+    vp = torch.nn.functional.pad(v, (r, r) * 3)
+    for axis, name, n in fabric.split_info(3):
+        if name is None or n == 1:
+            continue
+        for side in (slice(0, r), slice(vp.shape[nb + axis] - r, None)):
+            reg = (slice(None),) * nb + tuple(side if i == axis else slice(None)
+                                              for i in range(3))
+            vp[reg] = torch.randn(vp[reg].shape, generator=gen, device=v.device).to(vp.dtype)
+    return StandInExchange(vp, nb, tuple(v.shape[nb:]))
 
 
 def assert_bitwise(actual, expected) -> None:

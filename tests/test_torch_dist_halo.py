@@ -6,8 +6,9 @@ box27 and star25, f32 and bf16, one RHS and two:
 
 * the four-rank ``global_apply`` equals the port's one-rank apply of the
   whole array bit for bit, under both schedules, and the kernel backend's
-  overlapped SpMV (its plain versions here) equals it in the split ring form
-  and with ``fuse_ring``;
+  SpMV (its plain versions here) equals it under the overlap schedule (the
+  split ring form) and the blocking one (one launch over the exchanged
+  block);
 * it is held to the JAX package's ``global_apply`` on four devices: in f32
   to 2 ulp of each element's largest term (XLA on the CPU contracts FMAs),
   in bf16 bit for bit against JAX's strict mode
@@ -57,9 +58,7 @@ def inputs(spec, b):
 PORT = INPUTS + """
 import json, torch, numpy as np
 from repro_torch.core import halo, precision, stencil
-from repro_torch.core.comm import OVERLAP
-import dataclasses
-from repro_torch.core.tuning import default_config
+from repro_torch.core.comm import BLOCKING, OVERLAP
 from repro_torch.kernels.stencil_nd.ops import fused_local_apply
 from repro_torch.launch.mesh import RankMesh
 from repro_torch.obs import metrics
@@ -79,17 +78,15 @@ for fab, spec_name, pol_name, nb in CASES:
     u = halo.global_apply(mesh, cf, v, policy=pol, schedule="blocking")
     counts[key] = metrics.counter("comm.ppermute").value
     same = torch.equal(halo.global_apply(mesh, cf, v, policy=pol, schedule="overlap"), u)
-    # the kernel backend's overlapped SpMV on this rank's block: split ring
-    # form and fused ring form (plain versions on CPU tensors)
+    # the kernel backend's SpMV on this rank's block: the overlap schedule's
+    # split ring form and the blocking one (plain versions on CPU tensors)
     fabric = halo.FabricAxes.from_mesh(mesh)
     cfl = halo.local_coeffs(cf, fabric).astype(pol.storage)
     vl = halo.local_block(v, fabric, nb).to(pol.storage)
     split = fused_local_apply(cfl, vl, fabric, policy=pol, schedule=OVERLAP)
-    ring = dataclasses.replace(default_config(spec, pol.storage, tuple(cfl.shape),
-                                              2 if nb else 1), fuse_ring=True)
-    fused = fused_local_apply(cfl, vl, fabric, policy=pol, schedule=OVERLAP, config=ring)
+    whole = fused_local_apply(cfl, vl, fabric, policy=pol, schedule=BLOCKING)
     mine = halo.local_block(u, fabric, nb)
-    same_kernel = [bool(torch.equal(split, mine)), bool(torch.equal(fused, mine))]
+    same_kernel = [bool(torch.equal(split, mine)), bool(torch.equal(whole, mine))]
     flags = torch.tensor([same, *same_kernel], dtype=torch.int32)
     flags = torch.stack(dist.all_gather(flags))
     if RANK == 0:
@@ -164,8 +161,8 @@ def test_global_apply_equals_one_rank_apply(runs, fab, spec, pol, nb):
 
 @pytest.mark.parametrize("fab,spec,pol,nb", CASES, ids=lambda c: str(c))
 def test_schedules_and_ring_forms_agree_bitwise(runs, fab, spec, pol, nb):
-    """Per rank: overlap = blocking, and the kernel backend's split and
-    fused ring forms = the blocking apply's block."""
+    """Per rank: overlap = blocking, and the kernel backend's split ring and
+    blocking forms = the blocking apply's block."""
     port, _, _ = runs
     assert port[f"{fab}/{spec}/{pol}/{nb}/flags"].all()
 
