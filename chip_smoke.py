@@ -9,7 +9,7 @@ Phases (one line of output each, JSON where it carries numbers):
 1. the card's name and power limit (``nvidia-smi``), then the kernel build
    (``nvcc`` per source, into ``build/repro_torch_kernels/``) and its seconds,
    and each kernel's registers and spills from ``ptxas``: the group passes
-   (K2/K2b, K4/K4b), every instance of K6 and the 16 instances of K1's axpy
+   (K2/K2b, K3/K3b, K4/K4b), every instance of K6 and the 16 instances of K1's axpy
    form must not spill; with ``--sass-against CHECKOUT`` (a parent's
    checkout), every K1, K6 and K7 instance both builds have must compile to
    the same SASS (``cuobjdump -sass``; the instances only this build has
@@ -23,8 +23,12 @@ Phases (one line of output each, JSON where it carries numbers):
    the unbatched kernel on its slice, bit for bit; the same passes on
    operands that start off a 16-B boundary with n a whole number of 16-B
    groups (their element-wise form), also bit for bit against the same data
-   on 16-B boundaries; and the star7 SpMV with its dot epilogue (K6) at
-   every storage and accumulation dtype, its one-dot variant with w read
+   on 16-B boundaries, each such launch counted by the wrapper's
+   ``element_wise_launches`` (phase 4's solve must count none), the
+   element-wise form also forced on the data on 16-B boundaries (the same
+   bits) and a wide form forced on the views refused by the entry point; and the
+   star7 SpMV with its dot epilogue (K6) at every storage and accumulation
+   dtype, its one-dot variant with w read
    from memory and its two-dot variant with w the iterate itself, taken from
    the kernel's ring, each launched twice (the same bits), its vector also
    equal to K1's at the same accumulation; then K1 and K1b (B = 1 and 3), and K6, at the overlap
@@ -407,10 +411,11 @@ SASS_KERNELS = ("stencil_nd_kernel", "stencil7_dot_kernel", "wave_leapfrog_kerne
 #: gives them in brackets (NVIDIA H100 80GB HBM3 at 700 W), printed beside the new ones
 EARLIER_MS = {"stencil_nd": 6.99, "stencil_nd_batched": 7.72, "dot_mixed": 1.98,
               "dot_mixed_batched": 1.81, "update_q_dots": 2.81, "update_q_dots_batched": 3.15,
+              "update_xr_dots": 4.00, "update_xr_dots_batched": 5.51,
               "update_p": 2.87, "update_p_batched": 3.16, "stencil7_dot": 6.62}
-#: the group passes (K2, K4), each in f32 and bf16, wide and element-wise:
+#: the group passes (K2, K3, K4), each in f32 and bf16, wide and element-wise:
 #: ptxas must report no spill for any of the four instances of each
-GROUP_KERNELS = ("update_q_dots_kernel", "update_p_kernel")
+GROUP_KERNELS = ("update_q_dots_kernel", "update_xr_dots_kernel", "update_p_kernel")
 #: K6 on the x-march: 2 accumulations x (1 f32 + 2 bf16 stagings) x (one dot with
 #: w from memory, two dots with w from the ring); ptxas must report no spill for
 #: any of them
@@ -608,7 +613,14 @@ def check_off_boundary(torch, v, label) -> None:
     buffers), which alone sends the group passes to their element-wise form:
     against their plain versions, each RHS against the B = 1 launch, and
     against the same data on 16-B boundaries (the wide form) bit for bit,
-    dots included.  ``v`` holds five ``(B, n)`` operands."""
+    dots included; the wrapper's ``element_wise_launches`` counts each group
+    pass's launch on the views and not the one on 16-B boundaries.  The
+    form is the wrapper's to pick (``fk._whole_groups``) and the entry
+    point's to obey: forced element-wise on the data on 16-B boundaries, a
+    group pass gives the wide form's bits and counts one launch; forced
+    wide on the views, the entry point refuses it.  ``v`` holds five
+    ``(B, n)`` operands."""
+    from repro_torch.kernels import element_wise_launch_counts
     from repro_torch.kernels.fused_iter import kernel as fk
 
     def off(t):
@@ -625,14 +637,43 @@ def check_off_boundary(torch, v, label) -> None:
     check_fused_iter_batched(torch, w, f"{label} B={v[0].shape[0]}")
     passes = {
         "update_q_dots": lambda x: fk.update_q_dots(a, *one(x)[:3]),
+        "update_xr_dots": lambda x: fk.update_xr_dots(a, o, *one(x)),
         "update_p": lambda x: [fk.update_p(b, o, *one(x)[:3])],
         "dot_mixed": lambda x: [fk.dot_mixed(*one(x)[:2])],
         "update_q_dots_batched": lambda x: fk.update_q_dots_batched(ab, *x[:3]),
+        "update_xr_dots_batched": lambda x: fk.update_xr_dots_batched(ab, ob, *x),
         "update_p_batched": lambda x: [fk.update_p_batched(bb, ob, *x[:3])],
         "dot_mixed_batched": lambda x: [fk.dot_mixed_batched(*x[:2])],
     }
     for name, fn in passes.items():
-        same_bits(name, fn(w), fn(v), label, against="the same data on 16-B boundaries")
+        before = element_wise_launch_counts()
+        got = fn(w)
+        mid = element_wise_launch_counts()
+        wide = fn(v)
+        same_bits(name, got, wide, label, against="the same data on 16-B boundaries")
+        after = element_wise_launch_counts()
+        if name not in before:   # not a group pass
+            continue
+        check(mid[name] - before[name] == 1 and after == mid,
+              f"{name} {label}: element_wise_launches counted "
+              f"{mid[name] - before[name]} of 1 launch on the views and "
+              f"{after[name] - mid[name]} of 0 on 16-B boundaries")
+        whole_groups, refused = fk._whole_groups, False
+        try:
+            fk._whole_groups = lambda *args: False
+            same_bits(name, fn(v), wide, label + " forced element-wise",
+                      against="the wide form on the same data")
+            forced = element_wise_launch_counts()
+            fk._whole_groups = lambda *args: True
+            try:
+                fn(w)
+            except RuntimeError:
+                refused = True
+        finally:
+            fk._whole_groups = whole_groups
+        check(forced[name] - after[name] == 1,
+              f"{name} {label}: a forced element-wise launch counted {forced[name] - after[name]}")
+        check(refused, f"{name} {label}: a wide form forced on the views was not refused")
 
 
 def check_stencil_batched(torch, vp, cfs, spec, acc, label) -> None:
@@ -1172,6 +1213,7 @@ def gap_check(what: str, signed: list[int], every: int, median: int | None = Non
 
 
 def run_cli(argv):
+    """The CLI's solve and its kernel launches (the counters reset first)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import solve
 
@@ -1942,6 +1984,10 @@ def phase9(torch, smi: str, phase4: dict) -> dict:
         axpy = man["metrics"]["gauges"].get("kernels.stencil_nd_axpy.launches")
         check(axpy == MAIN_ITERS, f"9b: kernels.stencil_nd_axpy.launches {axpy!r}, "
                                   f"not one an iteration ({MAIN_ITERS})")
+        ew = {k: v for k, v in man["metrics"]["gauges"].items()
+              if k.endswith(".element_wise_launches")}
+        check(len(ew) == 6 and not any(ew.values()),
+              f"9b: the group passes' element_wise_launches gauges {ew}, not six zeros")
         same_run("9b --obs", res, counts, phase4)
         out["obs"] = dict(ms_per_iter=res["ms_per_iter"], phase4_ms_per_iter=phase4["ms_per_iter"],
                           collectives=colls[0] if colls else None, spans=sorted(spans),
@@ -4526,7 +4572,7 @@ def main(argv=None) -> int:
     if args.rank_part:
         return rank_main(args.rank_part, args.rank_out)
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, element_wise_launch_counts
 
     record: dict = {}
     t_start = time.perf_counter()
@@ -4640,7 +4686,8 @@ def main(argv=None) -> int:
     res.update(bytes_per_iter=moved,
                gb_per_s=moved / (res["ms_per_iter"] * 1e-3) / 1e9,
                bound_ms_per_iter=moved / PEAK_BYTES_PER_S * 1e3,
-               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts)
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts,
+               element_wise_launches=element_wise_launch_counts())
     record["paper_mesh"] = res
     emit(dict(phase="paper_mesh", **res))
     finite = all(math.isfinite(res[k]) for k in ("rel_residual", "true_rel_residual"))
@@ -4650,6 +4697,9 @@ def main(argv=None) -> int:
           f"paper mesh ran {res['iterations']} iterations (breakdown {res['breakdown']})")
     check(counts == expected_counts(res["iterations"]),
           f"paper-mesh launch counts {counts} != {expected_counts(res['iterations'])}")
+    check(not any(res["element_wise_launches"].values()),
+          f"paper mesh: group passes took their element-wise form "
+          f"{res['element_wise_launches']}")
 
     if args.profile:
         record["profile"] = profile_paths(torch)

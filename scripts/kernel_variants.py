@@ -4,6 +4,7 @@
     python3 scripts/kernel_variants.py stencil      [--out build/kernel_variants_stencil.json]
     python3 scripts/kernel_variants.py fused_iter   [--out build/kernel_variants_fused_iter.json]
     python3 scripts/kernel_variants.py stencil7_dot [--out build/kernel_variants_stencil7_dot.json]
+    python3 scripts/kernel_variants.py fused_iter --against build/parent   # + another checkout's
 
 Each variant is the family's CUDA source (``src/repro_torch/kernels/csrc/``)
 with a few text substitutions, built into its own copy of the package under
@@ -15,9 +16,10 @@ runs it, and with bf16 accumulation on the padded block, and K1b at 608^3 x
 4 RHS (star7, bf16 storage and accumulation, bare); its ``march_*``
 variants, as ``stencil7_dot``'s, run the x-march's ring in other forms than
 the shared ``Ring`` (described where they are defined).  ``fused_iter``: K2
-(update_q_dots) and K4 (update_p) at 608x608x1536 and K2b/K4b at 608^3 x 4
-RHS, bf16, their dots' relative gap to the plain version recorded beside
-the bitwise check.  ``stencil7_dot``: K6 at 608x608x1536 (bf16 storage, f32
+(update_q_dots), K3 (update_xr_dots) and K4 (update_p) at 608x608x1536 and
+K2b/K3b/K4b at 608^3 x 4 RHS, bf16, and K3 at 608x608x1535 (n odd: its
+element-wise form), the dots' relative gap to the plain version recorded
+beside the bitwise check.  ``stencil7_dot``: K6 at 608x608x1536 (bf16 storage, f32
 accumulation), its one-dot variant with w read from memory and its two-dot
 variant with w = the iterate taken from the kernel's ring (in the
 ``two_dots_memory_w`` variant, read from a copy in memory instead).  A
@@ -26,7 +28,9 @@ new)`` in another file of the package.  Times are CUDA events, mean of 20
 launches, three repeats.  Prints one JSON line per variant and run, the
 registers, stack frame and spill stores of the variant's kernels, and the
 card's name and power limit.  ``--variants`` picks some of a family's
-variants.
+variants; ``--against CHECKOUT`` adds that checkout's package as it is, timed
+in the same turns under the name ``against`` (the time script must run on
+it: a parent's kernels beside this tree's).
 """
 
 from __future__ import annotations
@@ -91,25 +95,37 @@ FUSED_TIME = CUDA_MS + r'''
 from repro_torch.kernels.fused_iter import kernel as fk
 from repro_torch.kernels.fused_iter import ref
 
-for sfx, shape in (("", (608 * 608 * 1536,)), ("b", (4, 608 ** 3))):
-    v = [torch.randn(shape, generator=g, device=dev).to(dt) for _ in range(3)]
-    if sfx:
+
+def dot_rel(got, want):
+    return max(float(((x - y).abs() / y.abs()).max()) for x, y in zip(got, want))
+
+
+for sfx, shape in (("", (608 * 608 * 1536,)), ("b", (4, 608 ** 3)), ("_odd", (608 * 608 * 1535,))):
+    v = [torch.randn(shape, generator=g, device=dev).to(dt) for _ in range(5)]
+    if sfx == "b":
         a, w, b = (torch.linspace(lo, hi, 4, device=dev)
                    for lo, hi in ((0.3, 0.9), (-1.3, -0.5), (0.2, 0.8)))
         q_dots, q_ref = fk.update_q_dots_batched, ref.update_q_dots_batched_ref
+        xr_dots, xr_ref = fk.update_xr_dots_batched, ref.update_xr_dots_batched_ref
         upd_p, p_ref = fk.update_p_batched, ref.update_p_batched_ref
     else:
         a, w, b = (torch.tensor(x, device=dev) for x in (0.37, -1.3, 0.81))
         q_dots, q_ref = fk.update_q_dots, ref.update_q_dots_ref
+        xr_dots, xr_ref = fk.update_xr_dots, ref.update_xr_dots_ref
         upd_p, p_ref = fk.update_p, ref.update_p_ref
-    got, want = q_dots(a, *v), q_ref(a, *v)
-    rel = max(float(((x - y).abs() / y.abs()).max()) for x, y in zip(got[1:], want[1:]))
-    out["k2" + sfx] = dict(bitwise=bool(got[0].equal(want[0])), dot_rel=rel,
-                           ms=[cuda_ms(lambda: q_dots(a, *v)) for _ in range(3)])
-    del got, want
-    out["k4" + sfx] = dict(bitwise=bool(upd_p(b, w, *v).equal(p_ref(b, w, *v))),
-                           ms=[cuda_ms(lambda: upd_p(b, w, *v)) for _ in range(3)])
-    del v
+    if sfx != "_odd":      # n odd: K3's element-wise form alone
+        got, want = q_dots(a, *v[:3]), q_ref(a, *v[:3])
+        out["k2" + sfx] = dict(bitwise=bool(got[0].equal(want[0])),
+                               dot_rel=dot_rel(got[1:], want[1:]),
+                               ms=[cuda_ms(lambda: q_dots(a, *v[:3])) for _ in range(3)])
+        del got, want
+        out["k4" + sfx] = dict(bitwise=bool(upd_p(b, w, *v[:3]).equal(p_ref(b, w, *v[:3]))),
+                               ms=[cuda_ms(lambda: upd_p(b, w, *v[:3])) for _ in range(3)])
+    got, want = xr_dots(a, w, *v), xr_ref(a, w, *v)
+    out["k3" + sfx] = dict(bitwise=bool(got[0].equal(want[0]) and got[1].equal(want[1])),
+                           dot_rel=dot_rel(got[2:], want[2:]),
+                           ms=[cuda_ms(lambda: xr_dots(a, w, *v)) for _ in range(3)])
+    del got, want, v
     torch.cuda.empty_cache()
 print(json.dumps(out))
 '''
@@ -136,6 +152,9 @@ for name, (ww, two) in {"one_dot": (w, False), "two_dots": (w2, True)}.items():
 print(json.dumps(out))
 '''
 
+#: K3 launched for 3 resident blocks an SM (85 registers a thread), on the grid of 4
+_XR_3_BLOCKS = ("__launch_bounds__(kThreads, kStreamMinBlocks)\n    update_xr_dots_kernel",
+                "__launch_bounds__(kThreads, 3)\n    update_xr_dots_kernel")
 #: evict-first loads and stores (dot_mixed's loads change with them; it is not timed here)
 _HINTS = [("if (wide) return __ldg(", "if (wide) return __ldcs("),
           ("reinterpret_cast<uint4*>(p)[j] = v;", "__stcs(reinterpret_cast<uint4*>(p) + j, v);")]
@@ -303,8 +322,10 @@ FAMILIES = {
         "march_in_kernel": _K1_IN_KERNEL,
         "march_callback": _K1_CALLBACK,
     }),
-    "fused_iter": ("fused_iter.cu", FUSED_TIME, r"update_(q_dots|p)_kernel", {
+    "fused_iter": ("fused_iter.cu", FUSED_TIME, r"update_(q_dots|xr_dots|p)_kernel", {
         "as_is": [],
+        # K3's resident blocks per SM on the same grid
+        "xr_3_blocks": [_XR_3_BLOCKS],
         "1_group_4_blocks": [("kStepGroups = 2;", "kStepGroups = 1;")],
         "1_group_8_blocks": [("kStepGroups = 2;", "kStepGroups = 1;"),
                              ("kStreamMinBlocks = 4;", "kStreamMinBlocks = 8;")],
@@ -355,6 +376,8 @@ def main(argv=None) -> int:
                     help="the variants to build and time, in this order (default all)")
     ap.add_argument("--out", type=Path, default=None,
                     help="default build/kernel_variants_<family>.json")
+    ap.add_argument("--against", type=Path, metavar="CHECKOUT", default=None,
+                    help="also time this checkout's package, as it is, in the same turns")
     args = ap.parse_args(argv)
     source, time_script, pattern, variants = FAMILIES[args.family]
     if args.variants:
@@ -382,6 +405,12 @@ def main(argv=None) -> int:
                     raise SystemExit(f"variant {name}: {old!r} not in {path}")
                 (d / path).write_text(text.replace(old, new))
             dirs[name] = d
+        if args.against:
+            d = tmp / "against"
+            shutil.copytree(args.against.resolve() / "src" / "repro_torch",
+                            d / "src" / "repro_torch", ignore=shutil.ignore_patterns("__pycache__"))
+            variants = {**variants, "against": [f"the package of {args.against}"]}
+            dirs["against"] = d
         build = "import sys; sys.path.insert(0, 'src'); " \
                 "from repro_torch.kernels import _build; print(_build.build())"
         procs = {n: subprocess.Popen([sys.executable, "-c", build], cwd=d, text=True,

@@ -23,7 +23,19 @@ def launch_counts() -> dict[str, int]:
     return {name: n for counts in _counters() for name, n in counts.items()}
 
 
+def element_wise_launch_counts() -> dict[str, int]:
+    """Launches so far of the fused group passes that took their element-wise
+    form (n not a whole number of 16-B groups, or an operand off a 16-B
+    boundary), by kernel name; a subset of :func:`launch_counts`' launches."""
+    from repro_torch.kernels.fused_iter import kernel as fused_iter_kernel
+
+    return dict(fused_iter_kernel.element_wise_launches)
+
+
 def reset_launch_counts() -> None:
-    for counts in _counters():
+    """Zero every launch counter, the element-wise ones included."""
+    from repro_torch.kernels.fused_iter import kernel as fused_iter_kernel
+
+    for counts in (*_counters(), fused_iter_kernel.element_wise_launches):
         for name in counts:
             counts[name] = 0

@@ -40,9 +40,10 @@ SIGNATURES = {
                               _P],
     "repro_stencil7_dot": [_I, _I, _P, _P, _P, _I, _L, _L, _L, _P, _I, _I, _I, _L, _P, _P, _P],
     "repro_wave_leapfrog": [_P, _P, _P, _P, _L, _P, _L, _L, _L, _I, _I, _I, _P],
-    "repro_update_q_dots": [_I, _P, _P, _P, _P, _P, _P, _P, _L, _L, _P],
-    "repro_update_xr_dots": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _P],
-    "repro_update_p": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _P],
+    "repro_update_q_dots": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _L, _P],
+    "repro_update_xr_dots": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L,
+                             _P],
+    "repro_update_p": [_I, _I, _P, _P, _P, _P, _P, _P, _L, _L, _P],
     "repro_dot_mixed": [_I, _P, _P, _P, _P, _L, _L, _P],
     "repro_update_q_dots_blocks": [_L],
     "repro_update_xr_dots_blocks": [_L],

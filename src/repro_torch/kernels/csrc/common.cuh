@@ -42,28 +42,22 @@ template <typename T> __device__ __forceinline__ float sub(float a, float b) {
   return rnd<T>(__fadd_rn(a, -b));
 }
 
-// Streaming passes: a fixed grid of at most kMaxBlocks blocks of kThreads
-// threads walks the vector grid-stride; each block writes its f32 partial
-// sums to a scratch buffer and one more block sums those in a fixed order.
-// No atomics, so every run gives the same bits.
+// Streaming passes: a fixed grid of blocks of kThreads threads walks the
+// vector; each block writes its f32 partial sums to a scratch buffer and one
+// more block sums those in a fixed order.  No atomics, so every run gives
+// the same bits.
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 4 * 132;
 
 // Right-hand sides of one batched launch: the streaming passes put the RHS on
 // the grid's y axis, whose extent is at most 65535.
 constexpr int kMaxBatch = 65535;
 
-inline int reduce_blocks(long long n) {
-  long long b = (n + kThreads - 1) / kThreads;
-  return (int)(b < kMaxBlocks ? b : kMaxBlocks);
-}
-
-// Per-thread f32 sums over a grid-stride loop, two levels deep: each run of
-// kChunk consecutive terms goes to an inner sum, which is then added to the
-// outer one.  One long chain of f32 adds drifts: over the ~4200 terms a thread
-// takes at 608x608x1536, a chain of squared bf16 values lost 3.8e-6 of its
-// sum; chains of at most kChunk terms, then of the chunk sums, keep the drift
-// to a few 1e-8.  The order stays fixed, so a run repeats bit for bit.
+// Per-thread f32 sums over the terms a thread takes, two levels deep: each
+// run of kChunk consecutive terms goes to an inner sum, which is then added
+// to the outer one.  One long chain of f32 adds drifts: over ~4200 terms (one
+// element a step for each thread of a 528-block grid at 608x608x1536), a
+// chain of squared bf16 values lost 3.8e-6 of its sum; chains of at most
+// kChunk terms, then of the chunk sums, keep the drift to a few 1e-8.  The order stays fixed, so a run repeats bit for bit.
 constexpr int kChunk = 32;
 
 template <int ND>
@@ -133,11 +127,6 @@ __device__ __forceinline__ void block_sum(float (&v)[ND]) {
     }
   }
 }
-
-// Grid-stride loop over n points (the streaming passes' fixed grid).
-#define REPRO_GRID_STRIDE(i, n)                                             \
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < (n); \
-       i += (int64_t)gridDim.x * kThreads)
 
 // Reduce a thread's chunked sums over the block and write the block's ND
 // partials to part[blockIdx.x * ND + d].

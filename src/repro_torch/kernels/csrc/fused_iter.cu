@@ -18,15 +18,13 @@
 // of the same pass instead of another sweep; each thread sums in chunks, and
 // the partial sums reduce without atomics (common.cuh), so the same inputs
 // give the same bits on every run.  What holds a streaming pass below its
-// bound on this card is bytes in flight: on the fixed grid of
-// reduce_blocks(n) (half the card's threads), one 2-byte load of each
-// operand per thread per step puts under a megabyte in flight, which keeps
-// such a pass under half its byte bound; a few MB are needed.  So
-// dot_mixed, update_q_dots and update_p take a grid that fills the card and
-// move every operand and output in 16-B groups (below); update_xr_dots
-// walks its vectors grid-stride on reduce_blocks(n).  The scalars come
-// in by device pointer to f32 tensors and are rounded to storage here, so
-// the solver loop never waits on the card to read them.
+// bound on this card is bytes in flight: one 2-byte load of each operand
+// per thread per step, on a grid of half the card's threads, puts under a
+// megabyte in flight, which keeps such a pass under two thirds of its byte
+// bound; a few MB are needed.  So every pass takes a grid that fills the
+// card and moves every operand and output in 16-B groups (below).  The
+// scalars come in by device pointer to f32 tensors and are rounded to
+// storage here, so the solver loop never waits on the card to read them.
 //
 // Batch: the B right-hand sides lie back to back, n points each, and the grid
 // is (blocks(n), B), with blockIdx.y the RHS, which reads its own scalars
@@ -37,28 +35,6 @@
 #include "common.cuh"
 
 namespace repro {
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    update_xr_dots_kernel(const float* __restrict__ alpha, const float* __restrict__ omega,
-                          const T* __restrict__ x, const T* __restrict__ p,
-                          const T* __restrict__ q, const T* __restrict__ y,
-                          const T* __restrict__ r0, T* __restrict__ xo, T* __restrict__ ro,
-                          float* __restrict__ part, int64_t n) {
-  const int64_t off = (int64_t)blockIdx.y * n;
-  x += off, p += off, q += off, y += off, r0 += off, xo += off, ro += off;
-  part += (int64_t)blockIdx.y * gridDim.x * 2;
-  const float a = rnd<T>(alpha[blockIdx.y]), w = rnd<T>(omega[blockIdx.y]);
-  ChunkedSum<2> acc;
-  REPRO_GRID_STRIDE(i, n) {
-    const float qi = to_f(q[i]);
-    xo[i] = from_f<T>(add<T>(add<T>(to_f(x[i]), mul<T>(a, to_f(p[i]))), mul<T>(w, qi)));
-    const float ri = sub<T>(qi, mul<T>(w, to_f(y[i])));
-    ro[i] = from_f<T>(ri);
-    acc.add({__fmul_rn(to_f(r0[i]), ri), __fmul_rn(ri, ri)});
-  }
-  store_partials<2>(acc, part);
-}
 
 // dot_mixed: its own grid, filling the card (kDotBlocks blocks of kThreads,
 // 2048 threads on each of the 132 SMs), and 16-B loads.  Elements group by
@@ -169,21 +145,26 @@ __global__ void __launch_bounds__(kThreads, 8)
   if (threadIdx.x == 0) part[blockIdx.x] = v[0];
 }
 
-// update_q_dots and update_p: dot_mixed's groups, loaded and stored whole.
-// The grid fills the card (kStreamMinBlocks blocks of kThreads on each SM);
-// thread t takes groups t, t + S, t + 2S, ... (S the grid's threads),
-// loading kStepGroups of them, each a 16-B group of every operand, before it
-// works on any: 96 B in flight per thread, about 13 MB on the card.  Where
-// n % G != 0 or an operand or output is not 16-B aligned, the launch takes
-// the element-wise form (Wide = false): the same groups load element by
-// element (zero-padded) and store only the elements i < n.  update_q_dots' dots
-// follow the groups: each group's G products sum in a fixed tree, a thread's
-// group sums in chunks of kChunk, the blocks' partials in sum_partials, so
-// their order depends on n and the group index alone, never on the
-// addresses or on kStepGroups.  The step depth and blocks per SM were chosen
-// by timing variants in turns on one card (scripts/kernel_variants.py,
-// PERF.md): evict-first hints (__ldcs/__stcs) on these read-once vectors
-// were slower, and two groups a step need more than 32 registers.
+// update_q_dots, update_xr_dots and update_p: dot_mixed's groups, loaded
+// and stored whole.  The grid fills the card (kStreamMinBlocks blocks of
+// kThreads on each SM); thread t takes groups t, t + S, t + 2S, ... (S the
+// grid's threads), loading kStepGroups of them, each a 16-B group of every
+// operand, before it works on any: 96 B in flight per thread for the
+// three-operand passes (about 13 MB on the card), 160 B for update_xr_dots'
+// five.  The caller picks each launch's form: the wide one needs n a whole
+// number of groups and every operand and output on a 16-B boundary (the
+// entry points refuse it otherwise); the element-wise form (Wide = false)
+// loads the same groups element by element (zero-padded) and stores only
+// the elements i < n.  The dots follow the groups: each group's G products
+// sum in a fixed tree, a thread's group sums in chunks of kChunk, the
+// blocks' partials in sum_partials, so their order depends on n and the
+// group index alone, never on the addresses or on the step depth.  The step
+// depth and blocks per SM were chosen by timing variants in turns on one
+// card (scripts/kernel_variants.py, PERF.md): evict-first hints
+// (__ldcs/__stcs) on these read-once vectors were slower, and two groups a
+// step need more than 32 registers.  update_xr_dots fits 64 registers at
+// two groups a step without a spill, and ran no faster at one; at 3 blocks
+// an SM it was 8% slower, and at 8 it spilled.
 constexpr int kStepGroups = 2;         // groups of each operand per thread per step
 constexpr int kStreamMinBlocks = 4;    // resident blocks per SM: 64 registers a thread
 
@@ -216,8 +197,9 @@ __device__ __forceinline__ float tree_sum(const float* v) {
   else return __fadd_rn(tree_sum<G / 2>(v), tree_sum<G / 2>(v + G / 2));
 }
 
-// Walk one RHS's groups of the NI operands in `in`; f(groups, j) takes the
-// NI groups of index j, in the order j = t, t + S, t + 2S, ...
+// Walk one RHS's groups of the NI operands in `in`, kStepGroups groups of
+// each a step; f(groups, j) takes the NI groups of index j, in the order
+// j = t, t + S, t + 2S, ...
 template <typename T, bool Wide, int NI, typename F>
 __device__ __forceinline__ void stream_groups(const T* const (&in)[NI], int64_t n, F&& f) {
   constexpr int G = 16 / (int)sizeof(T);
@@ -269,6 +251,43 @@ __global__ void __launch_bounds__(kThreads, kStreamMinBlocks)
   store_partials<2>(acc, part);
 }
 
+// x' = (x + st(a) p) + st(w) q and r' = q - st(w) y, each op rounded to T
+// as written; the dots take the rounded r'.
+template <typename T, bool Wide>
+__global__ void __launch_bounds__(kThreads, kStreamMinBlocks)
+    update_xr_dots_kernel(const float* __restrict__ alpha, const float* __restrict__ omega,
+                          const T* __restrict__ x, const T* __restrict__ p,
+                          const T* __restrict__ q, const T* __restrict__ y,
+                          const T* __restrict__ r0, T* __restrict__ xo, T* __restrict__ ro,
+                          float* __restrict__ part, int64_t n) {
+  constexpr int G = 16 / (int)sizeof(T);
+  const int64_t off = (int64_t)blockIdx.y * n;
+  const T* const in[5] = {x + off, p + off, q + off, y + off, r0 + off};
+  xo += off, ro += off;
+  part += (int64_t)blockIdx.y * gridDim.x * 2;
+  const float a = rnd<T>(alpha[blockIdx.y]), w = rnd<T>(omega[blockIdx.y]);
+  ChunkedSum<2> acc;
+  stream_groups<T, Wide>(in, n, [&](const uint4 (&g)[5], uint32_t j) {
+    float xv[G], pv[G], qv[G], yv[G], r0v[G];
+    unpack<T>(g[0], xv);
+    unpack<T>(g[1], pv);
+    unpack<T>(g[2], qv);
+    unpack<T>(g[3], yv);
+    unpack<T>(g[4], r0v);
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      xv[k] = add<T>(add<T>(xv[k], mul<T>(a, pv[k])), mul<T>(w, qv[k]));   // x'
+      qv[k] = sub<T>(qv[k], mul<T>(w, yv[k]));                              // r'
+      pv[k] = __fmul_rn(r0v[k], qv[k]);
+      yv[k] = __fmul_rn(qv[k], qv[k]);
+    }
+    store_group<T, Wide>(xo, j, n, pack<T>(xv));
+    store_group<T, Wide>(ro, j, n, pack<T>(qv));
+    acc.add({tree_sum<G>(pv), tree_sum<G>(yv)});
+  });
+  store_partials<2>(acc, part);
+}
+
 template <typename T, bool Wide>
 __global__ void __launch_bounds__(kThreads, kStreamMinBlocks)
     update_p_kernel(const float* __restrict__ beta, const float* __restrict__ omega,
@@ -290,33 +309,57 @@ __global__ void __launch_bounds__(kThreads, kStreamMinBlocks)
   });
 }
 
-// The groups' form of one launch: wide where n is a whole number of groups
-// and every operand and output starts on a 16-B boundary.
+// Where the wide form holds: n a whole number of groups and every operand
+// and output on a 16-B boundary.
 template <typename T, typename... P>
 inline bool wide_groups(long long n, const P*... ptrs) {
   return n % (16 / (long long)sizeof(T)) == 0 && (((((uintptr_t)ptrs) & 15) == 0) && ...);
 }
 
+// Each launcher runs the form `wide` names, and refuses a wide form that
+// does not hold (a 16-B access off its boundary would fault).
 template <typename T>
-void launch_update_q_dots(dim3 grid, cudaStream_t st, const void* alpha, const void* r,
-                          const void* s, const void* y, void* q, void* part, long long n) {
+int launch_update_q_dots(dim3 grid, cudaStream_t st, int wide, const void* alpha, const void* r,
+                         const void* s, const void* y, void* q, void* part, long long n) {
   auto* a = (const float*)alpha;
   auto *rp = (const T*)r, *sp = (const T*)s, *yp = (const T*)y;
-  if (wide_groups<T>(n, r, s, y, q))
+  if (wide && !wide_groups<T>(n, r, s, y, q)) return (int)cudaErrorInvalidValue;
+  if (wide)
     update_q_dots_kernel<T, true><<<grid, kThreads, 0, st>>>(a, rp, sp, yp, (T*)q, (float*)part, n);
   else
     update_q_dots_kernel<T, false><<<grid, kThreads, 0, st>>>(a, rp, sp, yp, (T*)q, (float*)part, n);
+  return 0;
 }
 
 template <typename T>
-void launch_update_p(dim3 grid, cudaStream_t st, const void* beta, const void* omega,
-                     const void* r, const void* p, const void* s, void* po, long long n) {
+int launch_update_xr_dots(dim3 grid, cudaStream_t st, int wide, const void* alpha,
+                          const void* omega, const void* x, const void* p, const void* q,
+                          const void* y, const void* r0, void* xo, void* ro, void* part,
+                          long long n) {
+  auto *a = (const float*)alpha, *w = (const float*)omega;
+  auto *xp = (const T*)x, *pp = (const T*)p, *qp = (const T*)q, *yp = (const T*)y;
+  auto* r0p = (const T*)r0;
+  if (wide && !wide_groups<T>(n, x, p, q, y, r0, xo, ro)) return (int)cudaErrorInvalidValue;
+  if (wide)
+    update_xr_dots_kernel<T, true><<<grid, kThreads, 0, st>>>(a, w, xp, pp, qp, yp, r0p, (T*)xo,
+                                                               (T*)ro, (float*)part, n);
+  else
+    update_xr_dots_kernel<T, false><<<grid, kThreads, 0, st>>>(a, w, xp, pp, qp, yp, r0p, (T*)xo,
+                                                                (T*)ro, (float*)part, n);
+  return 0;
+}
+
+template <typename T>
+int launch_update_p(dim3 grid, cudaStream_t st, int wide, const void* beta, const void* omega,
+                    const void* r, const void* p, const void* s, void* po, long long n) {
   auto *b = (const float*)beta, *w = (const float*)omega;
   auto *rp = (const T*)r, *pp = (const T*)p, *sp = (const T*)s;
-  if (wide_groups<T>(n, r, p, s, po))
+  if (wide && !wide_groups<T>(n, r, p, s, po)) return (int)cudaErrorInvalidValue;
+  if (wide)
     update_p_kernel<T, true><<<grid, kThreads, 0, st>>>(b, w, rp, pp, sp, (T*)po, n);
   else
     update_p_kernel<T, false><<<grid, kThreads, 0, st>>>(b, w, rp, pp, sp, (T*)po, n);
+  return 0;
 }
 
 }  // namespace repro
@@ -327,12 +370,15 @@ extern "C" {
 // produces dots: the scratch buffer of such a launch holds
 // B * repro_<pass>_blocks(n) * n_dots floats.
 int repro_update_q_dots_blocks(long long n) { return repro::stream_blocks(n); }
-int repro_update_xr_dots_blocks(long long n) { return repro::reduce_blocks(n); }
+int repro_update_xr_dots_blocks(long long n) { return repro::stream_blocks(n); }
 int repro_dot_mixed_blocks(long long n) { return repro::dot_blocks(n); }
 
 // Every entry point runs one pass over B right-hand sides of n points each,
 // back to back, with B scalars of each kind (a 0-d scalar is B = 1), and
-// returns a cudaError_t code (0 on success).  `partials` is f32 scratch of
+// returns a cudaError_t code (0 on success).  The group passes take `wide`,
+// the form of the launch (1: 16-B groups, 0: element by element), and refuse
+// a wide form where n % G != 0 or a pointer is off a 16-B boundary.
+// `partials` is f32 scratch of
 // B * repro_<pass>_blocks(n) * n_dots floats; `out` receives the n_dots x B
 // f32 sums, dot-major.
 
@@ -344,7 +390,7 @@ int repro_dot_mixed_blocks(long long n) { return repro::dot_blocks(n); }
   if (((n) + ((dtype) == repro::kF32 ? 3 : 7)) / ((dtype) == repro::kF32 ? 4 : 8) > 0x7fffffffLL) \
   return (int)cudaErrorInvalidValue
 
-int repro_update_q_dots(int dtype, const void* alpha, const void* r, const void* s,
+int repro_update_q_dots(int dtype, int wide, const void* alpha, const void* r, const void* s,
                         const void* y, void* q, void* partials, void* out, long long n,
                         long long nb, void* stream) {
   using namespace repro;
@@ -352,48 +398,47 @@ int repro_update_q_dots(int dtype, const void* alpha, const void* r, const void*
   REPRO_CHECK_GROUPS(dtype, n);
   const dim3 grid(stream_blocks(n), (unsigned)nb);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) launch_update_q_dots<float>(grid, st, alpha, r, s, y, q, partials, n);
-  else if (dtype == kBF16) launch_update_q_dots<bf16>(grid, st, alpha, r, s, y, q, partials, n);
-  else return (int)cudaErrorInvalidValue;
+  const int e = dtype == kF32 ? launch_update_q_dots<float>(grid, st, wide, alpha, r, s, y, q,
+                                                            partials, n)
+              : dtype == kBF16 ? launch_update_q_dots<bf16>(grid, st, wide, alpha, r, s, y, q,
+                                                            partials, n)
+              : (int)cudaErrorInvalidValue;
+  if (e) return e;
   sum_partials<2><<<(unsigned)nb, kThreads, 0, st>>>((const float*)partials, grid.x, (float*)out);
   return (int)cudaGetLastError();
 }
 
-int repro_update_xr_dots(int dtype, const void* alpha, const void* omega, const void* x,
-                         const void* p, const void* q, const void* y, const void* r0, void* xo,
-                         void* ro, void* partials, void* out, long long n, long long nb,
-                         void* stream) {
-  using namespace repro;
-  REPRO_CHECK_SIZE(n, nb);
-  const dim3 grid(reduce_blocks(n), (unsigned)nb);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) {
-    update_xr_dots_kernel<float><<<grid, kThreads, 0, st>>>(
-        (const float*)alpha, (const float*)omega, (const float*)x, (const float*)p,
-        (const float*)q, (const float*)y, (const float*)r0, (float*)xo, (float*)ro,
-        (float*)partials, n);
-  } else if (dtype == kBF16) {
-    update_xr_dots_kernel<bf16><<<grid, kThreads, 0, st>>>(
-        (const float*)alpha, (const float*)omega, (const bf16*)x, (const bf16*)p,
-        (const bf16*)q, (const bf16*)y, (const bf16*)r0, (bf16*)xo, (bf16*)ro,
-        (float*)partials, n);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  sum_partials<2><<<(unsigned)nb, kThreads, 0, st>>>((const float*)partials, grid.x, (float*)out);
-  return (int)cudaGetLastError();
-}
-
-int repro_update_p(int dtype, const void* beta, const void* omega, const void* r, const void* p,
-                   const void* s, void* po, long long n, long long nb, void* stream) {
+int repro_update_xr_dots(int dtype, int wide, const void* alpha, const void* omega,
+                         const void* x, const void* p, const void* q, const void* y,
+                         const void* r0, void* xo, void* ro, void* partials, void* out,
+                         long long n, long long nb, void* stream) {
   using namespace repro;
   REPRO_CHECK_SIZE(n, nb);
   REPRO_CHECK_GROUPS(dtype, n);
   const dim3 grid(stream_blocks(n), (unsigned)nb);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) launch_update_p<float>(grid, st, beta, omega, r, p, s, po, n);
-  else if (dtype == kBF16) launch_update_p<bf16>(grid, st, beta, omega, r, p, s, po, n);
-  else return (int)cudaErrorInvalidValue;
+  const int e = dtype == kF32 ? launch_update_xr_dots<float>(grid, st, wide, alpha, omega, x, p,
+                                                             q, y, r0, xo, ro, partials, n)
+              : dtype == kBF16 ? launch_update_xr_dots<bf16>(grid, st, wide, alpha, omega, x, p,
+                                                             q, y, r0, xo, ro, partials, n)
+              : (int)cudaErrorInvalidValue;
+  if (e) return e;
+  sum_partials<2><<<(unsigned)nb, kThreads, 0, st>>>((const float*)partials, grid.x, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+int repro_update_p(int dtype, int wide, const void* beta, const void* omega, const void* r,
+                   const void* p, const void* s, void* po, long long n, long long nb,
+                   void* stream) {
+  using namespace repro;
+  REPRO_CHECK_SIZE(n, nb);
+  REPRO_CHECK_GROUPS(dtype, n);
+  const dim3 grid(stream_blocks(n), (unsigned)nb);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int e = dtype == kF32 ? launch_update_p<float>(grid, st, wide, beta, omega, r, p, s, po, n)
+              : dtype == kBF16 ? launch_update_p<bf16>(grid, st, wide, beta, omega, r, p, s, po, n)
+              : (int)cudaErrorInvalidValue;
+  if (e) return e;
   return (int)cudaGetLastError();
 }
 

@@ -10,7 +10,12 @@ unbatched launch on its slice bit for bit).  A CPU tensor takes the plain
 version in ``ref.py``, a CUDA tensor launches the kernel or raises.  Scalars
 are read by the kernel through a pointer.  ``launches`` counts one per
 kernel call (the call's fixed-order partial-sum pass included), CUDA tensors
-only, with one counter per form.
+only, with one counter per form.  The group passes (``update_q_dots``,
+``update_xr_dots``, ``update_p``) move 16-B groups unless n is not a whole
+number of groups or an operand or output starts off a 16-B boundary; then
+the wrapper launches their element-wise form (the entry points take the
+form as an argument, and refuse a wide one that does not hold), and
+``element_wise_launches`` counts it too.
 """
 
 from __future__ import annotations
@@ -21,8 +26,18 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.fused_iter import ref
 
 _NAMES = ("update_q_dots", "update_xr_dots", "update_p", "dot_mixed")
+_GROUP_PASSES = ("update_q_dots", "update_xr_dots", "update_p")
 #: kernel launches in this process (CUDA tensors only)
 launches = {**{n: 0 for n in _NAMES}, **{n + "_batched": 0 for n in _NAMES}}
+#: launches of the group passes that took the element-wise form
+element_wise_launches = {**{n: 0 for n in _GROUP_PASSES},
+                         **{n + "_batched": 0 for n in _GROUP_PASSES}}
+
+
+def _whole_groups(n: int, itemsize: int, tensors) -> bool:
+    """Whether a group pass launches its wide form: n a whole number of 16-B
+    groups and every operand and output on a 16-B boundary."""
+    return n % (16 // itemsize) == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _on_cuda(what: str, *vectors: torch.Tensor, ndim: int = 1) -> bool:
@@ -64,12 +79,18 @@ def _launch(what: str, batched: bool, scalars, vectors, n_out: int, n_dots: int)
         bufs = [torch.empty(nb * blocks * n_dots, dtype=torch.float32, device=first.device),
                 torch.empty((n_dots, nb) if batched else (n_dots,), dtype=torch.float32,
                             device=first.device)]
+    form = ()
+    if what in _GROUP_PASSES:
+        form = (int(_whole_groups(n, first.element_size(), (*vectors, *outs))),)
     code = getattr(lib, "repro_" + what)(
-        _build.dtype_code(first.dtype), *(t.data_ptr() for t in (*sc, *vectors, *outs, *bufs)),
+        _build.dtype_code(first.dtype), *form,
+        *(t.data_ptr() for t in (*sc, *vectors, *outs, *bufs)),
         n, nb, _build.stream_handle(first.device))
     name = what + "_batched" if batched else what
     _build.check_launch(lib, code, name)
     launches[name] += 1
+    if form == (0,):
+        element_wise_launches[name] += 1
     return outs, bufs[1] if n_dots else None
 
 

@@ -174,6 +174,10 @@ def test_bundle_passes_both_schema_checks(tmp_path):
     # the kernels' launch counts ride the bundle (0 on CPU tensors)
     assert gauges["kernels.stencil_nd.launches"] == 0
     assert "kernels.stencil7_dot.launches" in gauges
+    # and the fused group passes' element-wise launches beside them
+    assert {k: v for k, v in gauges.items() if k.endswith(".element_wise_launches")} == {
+        f"kernels.{name}{sfx}.element_wise_launches": 0
+        for name in ("update_q_dots", "update_xr_dots", "update_p") for sfx in ("", "_batched")}
 
 
 def _compare(base, cand):
