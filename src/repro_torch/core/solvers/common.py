@@ -21,6 +21,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.precision import Policy
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import record_solve
 
@@ -151,7 +152,8 @@ def run_krylov(step, init, *, maxiter: int, bnorm2: torch.Tensor, record_history
     ``where(active, new, old)``, but only in iterations that the mask shows
     a stopped RHS in.  With every RHS active the merge would return ``new``
     bit for bit, and would read and write every vector of the state once
-    more.
+    more.  The counter ``krylov.freeze_merges`` counts the iterations that
+    ran the merge, added once a solve from the loop's own tally.
 
     ``record_history`` returns the f32[maxiter(, B)] relative residual after
     each iteration; iterations after an RHS's exit repeat its exit value, as
@@ -162,6 +164,7 @@ def run_krylov(step, init, *, maxiter: int, bnorm2: torch.Tensor, record_history
     carry = init
     hist = []
     n = 0
+    merges = 0
     stop = maxiter <= 0
     while not stop:
         with obs_trace.span("krylov.iteration"):
@@ -172,12 +175,14 @@ def run_krylov(step, init, *, maxiter: int, bnorm2: torch.Tensor, record_history
             new = step(carry)
             carry = new if all_active else tuple(
                 _freeze_select(active, a, b) for a, b in zip(new, carry))
+            merges += not all_active
             n += 1
             if record_history:
                 hist.append(rel(carry))
             stop = n >= maxiter
             if not stop:
                 stop, active, all_active = _stop_flags(carry, batched)
+    obs_metrics.counter("krylov.freeze_merges").inc(merges)
     if not record_history:
         return carry, None
     hist += [rel(carry)] * (maxiter - len(hist))      # the frozen tail

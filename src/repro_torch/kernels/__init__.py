@@ -32,10 +32,21 @@ def element_wise_launch_counts() -> dict[str, int]:
     return dict(fused_iter_kernel.element_wise_launches)
 
 
-def reset_launch_counts() -> None:
-    """Zero every launch counter, the element-wise ones included."""
-    from repro_torch.kernels.fused_iter import kernel as fused_iter_kernel
+def rhs_counts() -> dict[str, int]:
+    """Right-hand sides served so far by the batched stencil kernel's
+    launches, by kernel name; over its :func:`launch_counts` entry, the
+    right-hand sides one launch served."""
+    from repro_torch.kernels.stencil_nd import kernel as stencil_kernel
 
-    for counts in (*_counters(), fused_iter_kernel.element_wise_launches):
+    return dict(stencil_kernel.rhs)
+
+
+def reset_launch_counts() -> None:
+    """Zero every launch counter, the element-wise and right-hand-side ones
+    included."""
+    from repro_torch.kernels.fused_iter import kernel as fused_iter_kernel
+    from repro_torch.kernels.stencil_nd import kernel as stencil_kernel
+
+    for counts in (*_counters(), fused_iter_kernel.element_wise_launches, stencil_kernel.rhs):
         for name in counts:
             counts[name] = 0

@@ -17,7 +17,8 @@ the cut.  Every plan gives the same bits.
 :func:`stencil_nd_axpy` is BiCGStab's second SpMV with its input unformed:
 ``A (r - st(alpha) s)``, the kernel forming each plane of the input as it
 stages it, so that input never reaches device memory.  ``launches`` counts
-kernel launches only, one counter per wrapper.
+kernel launches only, one counter per wrapper; ``rhs`` counts the
+right-hand sides the batched wrapper's launches served.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ from repro_torch.kernels.stencil_nd.ref import stencil_nd_padded_ref, stencil_nd
 
 #: kernel launches in this process (CUDA tensors only)
 launches = {"stencil_nd": 0, "stencil_nd_batched": 0, "stencil_nd_axpy": 0}
+#: right-hand sides served by those launches (CUDA tensors only), the batched wrapper's
+rhs = {"stencil_nd_batched": 0}
 
 #: the family specs the kernel is compiled for: (offset count, radius) ->
 #: (kind, the most right-hand sides one block carries; max_chunk of stencil_nd.cu)
@@ -162,6 +165,13 @@ def _apply(what: str, vp: torch.Tensor, coeffs: list[torch.Tensor], offsets, r: 
         if bare:
             return stencil_nd_ref(vp, coeffs, offsets, accum_dtype=accum_dtype)
         return stencil_nd_padded_ref(vp, coeffs, offsets, radius=r, accum_dtype=accum_dtype)
+    return _launch(what, vp, coeffs, offsets, r, accum_dtype, batched)
+
+
+def _launch(what: str, vp: torch.Tensor, coeffs: list[torch.Tensor], offsets, r: int,
+            accum_dtype: torch.dtype, batched: bool) -> torch.Tensor:
+    """Check, plan, allocate ``u``, launch and count; B = 1 for the
+    unbatched form."""
     shape, bare = _check(what, vp, coeffs, offsets, r, int(batched))
     nb = vp.shape[0] if batched else 1
     if not 1 <= nb <= _build.MAX_BATCH:
@@ -178,6 +188,8 @@ def _apply(what: str, vp: torch.Tensor, coeffs: list[torch.Tensor], offsets, r: 
         _build.stream_handle(vp.device))
     _build.check_launch(lib, code, what)
     launches[what] += 1
+    if what in rhs:
+        rhs[what] += nb
     return u
 
 

@@ -152,13 +152,14 @@ def start_run(kind: str, *, config: dict | None = None, run_dir: str | None = No
 
 def finish_run(ctx: RunContext, *, extra: dict | None = None, failed: bool = False) -> dict:
     """Stop the profiler, copy the kernel launch counts into
-    ``kernels.<name>.launches`` gauges (and the fused group passes'
-    element-wise launches into ``kernels.<name>.element_wise_launches``),
-    and write ``manifest.json``,
+    ``kernels.<name>.launches`` gauges (the fused group passes'
+    element-wise launches into ``kernels.<name>.element_wise_launches``, the
+    batched stencil's right-hand sides into ``kernels.<name>.rhs``), and
+    write ``manifest.json``,
     ``events.jsonl`` and ``trace.json``.  ``failed`` (the run raised) stops
     the profiler without its device-activity check, so the run's own error
     is the one raised."""
-    from repro_torch.kernels import element_wise_launch_counts, launch_counts
+    from repro_torch.kernels import element_wise_launch_counts, launch_counts, rhs_counts
 
     if ctx._profiler is not None:
         prof, ctx._profiler = ctx._profiler, None
@@ -167,6 +168,8 @@ def finish_run(ctx: RunContext, *, extra: dict | None = None, failed: bool = Fal
         metrics.gauge(f"kernels.{name}.launches").set(n)
     for name, n in element_wise_launch_counts().items():
         metrics.gauge(f"kernels.{name}.element_wise_launches").set(n)
+    for name, n in rhs_counts().items():
+        metrics.gauge(f"kernels.{name}.rhs").set(n)
     wall = time.time() - ctx.t_start
     metrics.event("run_finish", run_id=ctx.run_id, wall_s=wall)
 
