@@ -401,9 +401,18 @@ FAMILY_MESH = (256, 256, 256)   # box27 and star25 timed here, off the measured 
 AXPY_SHAPES = [(256, 256, 256), (37, 29, 24)]
 AXPY_MESHES = [PAPER_MESH, (600, 595, 1536), (600, 600, 600)]
 AXPY_ODD = (37, 29, 17)
-#: the axpy instances in the ptxas log: stencil_nd_kernel<T, A, KIND, R, NB = 1,
-#: FORM = kBareAxpy = 3>, 2 storage x 2 accumulation dtypes x 4 family specs
-AXPY_INSTANCE, AXPY_INSTANCES = re.compile(r"stencil_nd_kernel\w*Li1ELi3EE+v"), 16
+#: its batched form (``stencil_nd_batched_axpy``, one alpha a RHS) at AXPY_SHAPES for
+#: every family spec, dtype and accumulation at these B (star7 and box27: a short
+#: chunk of 2 and 3, a full chunk of 4, a full chunk and a tail of 1), each bit for bit
+#: K1b on the plain q_in and, per RHS, the unbatched form on its slice; then (star7,
+#: bf16) at the block cell's 600x595x1536 x 3 and phase 5's 608^3 x 4, timed beside
+#: K1b on q and beside the q_in pass plus K1b that it replaces
+AXPY_BATCHES = (2, 3, 4, 5)
+AXPY_BLOCKS = [((600, 595, 1536), 3), (JOULE_MESH, 4)]   # phase 5: MAIN_NRHS
+#: the axpy instances in the ptxas log: stencil_nd_kernel<T, A, KIND, R, NB, FORM =
+#: kBareAxpy = 3>, 2 storage x 2 accumulation dtypes x (4 family specs at NB = 1, and
+#: star7, star13 and box27 at their chunk of 4, 2, 4)
+AXPY_INSTANCE, AXPY_INSTANCES = re.compile(r"stencil_nd_kernel\w*Li(\d)ELi3EE+v"), 16 + 12
 #: the x-march kernels whose every instance must compile to the SASS of the
 #: checkout that ``--sass-against`` names (K1, K6, K7)
 SASS_KERNELS = ("stencil_nd_kernel", "stencil7_dot_kernel", "wave_leapfrog_kernel")
@@ -445,13 +454,15 @@ KERNELS = {
 }
 
 #: every launch counter of ``repro_torch.kernels.launch_counts``: the kernels
-#: above, K1's form that stages its own input (``stencil_nd_axpy``, phase 2),
-#: and K7 (``wave_leapfrog``), which replaces no TPU kernel (phase 15)
-COUNTERS = (*KERNELS, "stencil_nd_axpy", "wave_leapfrog")
+#: above, K1's and K1b's forms that stage their own input (``stencil_nd_axpy``,
+#: ``stencil_nd_batched_axpy``, phase 2), and K7 (``wave_leapfrog``), which
+#: replaces no TPU kernel (phase 15)
+AXPY_FORMS = ("stencil_nd_axpy", "stencil_nd_batched_axpy")
+COUNTERS = (*KERNELS, *AXPY_FORMS, "wave_leapfrog")
 
 failures: list[str] = []
 #: max |kernel - plain| over every output checked
-err = {k: 0.0 for k in (*KERNELS, "stencil_nd_axpy")}
+err = {k: 0.0 for k in (*KERNELS, *AXPY_FORMS)}
 dot_rel = {k: 0.0 for k in KERNELS}    # max |dot diff| / sum |a_i b_i|
 dot_signal: dict[str, float] = {}   # min |plain dot| / tolerance, per kernel with dots
 
@@ -801,56 +812,80 @@ def check_axpy_stencil(torch) -> dict:
     ``q_in`` and against the plain version, bit for bit: every family spec,
     f32 and bf16 at every accumulation, at AXPY_SHAPES; the solve's form
     (star7, bf16 accumulation) at AXPY_MESHES, timed there beside K1 on q
-    and beside the q_in pass plus K1 that it replaces.  At AXPY_ODD the
-    fused operator has no ``apply_axpy``; there, and on an operand off a
-    16-B boundary, the wrapper raises and launches nothing."""
+    and beside the q_in pass plus K1 that it replaces.  Its batched form
+    (``stencil_nd_batched_axpy``) likewise at AXPY_SHAPES for the B of
+    AXPY_BATCHES, against K1b on the plain q_in and, per RHS, the unbatched
+    form on its slice, and timed at AXPY_BLOCKS beside K1b on q and the q_in
+    pass plus K1b.  At AXPY_ODD the fused operator has no ``apply_axpy``;
+    there, and on operands off a 16-B boundary, both wrappers raise and
+    launch nothing."""
     from repro_torch.core import operator, precision, stencil
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.kernels.stencil_nd.kernel import stencil_nd, stencil_nd_axpy
+    from repro_torch.kernels.stencil_nd.kernel import (
+        stencil_nd, stencil_nd_axpy, stencil_nd_batched, stencil_nd_batched_axpy,
+    )
     from repro_torch.kernels.stencil_nd.ref import stencil_nd_ref
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(9)
-    alpha = lambda: (0.5 + torch.rand((), generator=gen, device=dev)).float()
+    alpha = lambda *nb: (0.5 + torch.rand(nb, generator=gen, device=dev)).float()
 
-    def case(shape, dtype, acc, sname, label, timed=False):
+    def case(shape, dtype, acc, sname, label, timed=False, nb=None):
+        """One check (``nb`` None: the unbatched form), and its times."""
         spec = stencil.get_spec(sname)
-        rnd = lambda: torch.randn(shape, generator=gen, device=dev).to(dtype)
-        r, s, a = rnd(), rnd(), alpha()
+        rnd = lambda: torch.randn(((nb,) if nb else ()) + shape, generator=gen,
+                                  device=dev).to(dtype)
+        r, s, a = rnd(), rnd(), alpha(*((nb,) if nb else ()))
         cfs = [(0.2 * torch.randn(shape, generator=gen, device=dev)).to(dtype)
                for _ in spec.offsets]
         kw = dict(radius=spec.radius, accum_dtype=acc)
-        q_in = lambda: r - a.to(dtype) * s
-        axpy = lambda: stencil_nd_axpy(a, r, s, cfs, spec.offsets, **kw)
+        if nb:
+            name, form, k1, k1_name = ("stencil_nd_batched_axpy", stencil_nd_batched_axpy,
+                                       stencil_nd_batched, "k1b")
+            q_in = lambda: r - a.to(dtype)[:, None, None, None] * s
+        else:
+            name, form, k1, k1_name = "stencil_nd_axpy", stencil_nd_axpy, stencil_nd, "k1"
+            q_in = lambda: r - a.to(dtype) * s
+        axpy = lambda: form(a, r, s, cfs, spec.offsets, **kw)
         got, q = axpy(), q_in()
-        same_bits("stencil_nd_axpy", [got], [stencil_nd(q, cfs, spec.offsets, **kw)], label,
-                  against="K1's bare form on the plain q_in")
-        vec_eq("stencil_nd_axpy", got, stencil_nd_ref(q, cfs, spec.offsets, accum_dtype=acc),
-               label)
+        same_bits(name, [got], [k1(q, cfs, spec.offsets, **kw)], label,
+                  against=f"{k1_name.upper()}'s bare form on the plain q_in")
+        if nb:
+            same_bits(name, list(got), [stencil_nd_axpy(a[i], r[i], s[i], cfs, spec.offsets,
+                                                        **kw) for i in range(nb)],
+                      label, against="the unbatched axpy form on its slice")
+        vec_eq(name, got, stencil_nd_ref(q, cfs, spec.offsets, accum_dtype=acc), label)
         row = None
         if timed:
-            n = math.prod(shape)
-            row = dict(shape=list(shape), ms=cuda_ms(torch, axpy),
-                       k1_on_q_ms=cuda_ms(torch, lambda: stencil_nd(q, cfs, spec.offsets, **kw)),
-                       q_in_then_k1_ms=cuda_ms(torch, lambda: stencil_nd(q_in(), cfs,
-                                                                         spec.offsets, **kw)),
-                       bytes=nbytes(r, s, *cfs) + nbytes(r))
+            n = math.prod(shape) * (nb or 1)
+            row = {"shape": list(shape), "nrhs": nb or 1, "ms": cuda_ms(torch, axpy),
+                   f"{k1_name}_on_q_ms": cuda_ms(torch, lambda: k1(q, cfs, spec.offsets, **kw)),
+                   f"q_in_then_{k1_name}_ms": cuda_ms(torch, lambda: k1(q_in(), cfs,
+                                                                        spec.offsets, **kw)),
+                   "bytes": nbytes(r, s, *cfs) + nbytes(r)}
             row["bound_ms"], row["bound_by"] = bound(row["bytes"],
                                                      2 * spec.n_offsets * n + 2 * n)
         del r, s, cfs, got, q
         torch.cuda.empty_cache()
         return row
 
+    dname = lambda t: str(t).split(".")[-1]
     for shape in AXPY_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             for acc in (torch.float32, torch.bfloat16):
                 for sname in ("star7", "star13", "star25", "box27"):
-                    case(shape, dtype, acc, sname,
-                         f"axpy {sname} {'x'.join(map(str, shape))} "
-                         f"{str(dtype).split('.')[-1]} accum {str(acc).split('.')[-1]}")
+                    label = (f"axpy {sname} {'x'.join(map(str, shape))} {dname(dtype)} "
+                             f"accum {dname(acc)}")
+                    case(shape, dtype, acc, sname, label)
+                    for nb in AXPY_BATCHES:
+                        case(shape, dtype, acc, sname, f"{label} x {nb}", nb=nb)
     times = [case(m, torch.bfloat16, torch.bfloat16, "star7",
                   f"axpy star7 {'x'.join(map(str, m))} bfloat16 accum bfloat16", timed=True)
              for m in AXPY_MESHES]
+    blocks = [case(m, torch.bfloat16, torch.bfloat16, "star7",
+                   f"axpy star7 {'x'.join(map(str, m))} x {nb} bfloat16 accum bfloat16",
+                   timed=True, nb=nb)
+              for m, nb in AXPY_BLOCKS]
 
     # Z not a whole number of 16-B vectors, and operands off a 16-B boundary
     spec, dt = stencil.STAR7, torch.bfloat16
@@ -859,28 +894,34 @@ def check_axpy_stencil(torch) -> dict:
     check(op.apply_axpy is None, f"axpy: the operator at {AXPY_ODD} has apply_axpy")
     refused = {}
     for label, shape, skew in (("odd Z", AXPY_ODD, 0), ("off 16-B", AXPY_SHAPES[1], 1)):
-        n = math.prod(shape)
-        r, s = (torch.randn(n + 1, generator=gen, device=dev).to(dt)[skew:skew + n].view(shape)
-                for _ in range(2))
-        cfs = [(0.2 * torch.randn(shape, generator=gen, device=dev)).to(dt)
-               for _ in spec.offsets]
-        reset_launch_counts()
-        try:
-            stencil_nd_axpy(alpha(), r, s, cfs, spec.offsets, radius=1, accum_dtype=dt)
-            refused[label] = None
-        except ValueError as e:
-            refused[label] = str(e)
-        counts = {k: v for k, v in launch_counts().items() if v}
-        check(refused[label] is not None and not counts,
-              f"axpy, {label}: not refused ({refused[label]!r}) or launched {counts}")
+        for nb in (None, 3):
+            lead = (nb,) if nb else ()
+            n = math.prod(lead + shape)
+            r, s = (torch.randn(n + 1, generator=gen, device=dev).to(dt)[skew:skew + n]
+                    .view(lead + shape) for _ in range(2))
+            cfs = [(0.2 * torch.randn(shape, generator=gen, device=dev)).to(dt)
+                   for _ in spec.offsets]
+            form = stencil_nd_batched_axpy if nb else stencil_nd_axpy
+            key = f"{label}{' x %d' % nb if nb else ''}"
+            reset_launch_counts()
+            try:
+                form(alpha(*lead), r, s, cfs, spec.offsets, radius=1, accum_dtype=dt)
+                refused[key] = None
+            except ValueError as e:
+                refused[key] = str(e)
+            counts = {k: v for k, v in launch_counts().items() if v}
+            check(refused[key] is not None and not counts,
+                  f"axpy, {key}: not refused ({refused[key]!r}) or launched {counts}")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return dict(meshes=times, refused=refused)
+    return dict(meshes=times, blocks=blocks, refused=refused)
 
 
 def sass_functions(lib: Path) -> dict[str, str]:
     """Each kernel's SASS in a built library (``cuobjdump -sass``), by
-    mangled name: its instruction and encoding lines as printed."""
+    mangled name: its instruction and encoding lines, each with its runs of
+    blanks cut to one (cuobjdump pads the columns to the widest instruction
+    of the whole library, so a new instance elsewhere moves them)."""
     from repro_torch.kernels import _build
 
     tool = Path(_build.nvcc_path()).parent / "cuobjdump"
@@ -893,7 +934,7 @@ def sass_functions(lib: Path) -> dict[str, str]:
             name = m.group(1)
             out[name] = []
         elif name is not None and line.strip().startswith("/*"):
-            out[name].append(line.strip())
+            out[name].append(" ".join(line.split()))
     return {k: "\n".join(v) for k, v in out.items()}
 
 
@@ -1223,18 +1264,16 @@ def run_cli(argv):
 
 
 def expected_counts(iters: int, batched: bool = False) -> dict:
-    """Every kernel's launches over a fused solve of ``iters`` iterations:
-    2 stencils and 1 of each pass per iteration, 2 more dots at setup, and
-    none of the other form or of K6.  Unbatched, the second stencil is K1's
-    axpy form (``stencil_nd_axpy``)."""
+    """Every kernel's launches over a fused solve of ``iters`` iterations on
+    one rank: 2 stencils and 1 of each pass per iteration, 2 more dots at
+    setup, and none of the other form or of K6.  The second stencil is the
+    axpy form (``stencil_nd_axpy``; batched, ``stencil_nd_batched_axpy``)."""
     sfx = "_batched" if batched else ""
     counts = {k: 0 for k in COUNTERS}
-    counts.update({"stencil_nd" + sfx: iters if not batched else 2 * iters,
+    counts.update({"stencil_nd" + sfx: iters, "stencil_nd" + sfx + "_axpy": iters,
                    "update_q_dots" + sfx: iters,
                    "update_xr_dots" + sfx: iters, "update_p" + sfx: iters,
                    "dot_mixed" + sfx: iters + 2})
-    if not batched:
-        counts["stencil_nd_axpy"] = iters
     return counts
 
 
@@ -1941,6 +1980,42 @@ def read_jsonl(path: Path) -> list[dict]:
     return [json.loads(line) for line in path.read_text().splitlines() if line.strip()]
 
 
+#: 9b's block path: the momentum cell's 600x595x1536 x 3 (one rank, bf16)
+BLOCK_OBS = ((600, 595, 1536), 3)
+
+
+def block_obs_bundle(torch, run_dir: Path) -> dict:
+    """9b on the block path (BLOCK_OBS, ``--nrhs``, MAIN_ITERS iterations at
+    tol 0): the manifest's ``kernels.stencil_nd_batched_axpy.launches``
+    reads one an iteration, each serving the block (``.rhs``), K1b's first
+    SpMV one an iteration, and ``trace.json`` holds no ``bicgstab.q_in``
+    (the second SpMV forms the block's q itself)."""
+    from repro_torch.obs import manifest
+
+    torch.cuda.empty_cache()
+    shape, nrhs = BLOCK_OBS
+    res, counts = run_cli(["--mesh", *(str(n) for n in shape), "--nrhs", str(nrhs),
+                           "--backend", "fused", "--policy", "bf16_mixed", "--tol", "0",
+                           "--maxiter", str(MAIN_ITERS), "--obs", "--run-dir", str(run_dir)])
+    gauges = manifest.load_manifest(str(run_dir))["metrics"]["gauges"]
+    spans = {e["name"] for e in json.loads((run_dir / "trace.json").read_text())["traceEvents"]}
+    got = {k: gauges.get(f"kernels.{k}") for k in (
+        "stencil_nd_batched_axpy.launches", "stencil_nd_batched_axpy.rhs",
+        "stencil_nd_batched.launches", "stencil_nd_batched.rhs")}
+    want = {"stencil_nd_batched_axpy.launches": MAIN_ITERS,
+            "stencil_nd_batched_axpy.rhs": MAIN_ITERS * nrhs,
+            "stencil_nd_batched.launches": MAIN_ITERS, "stencil_nd_batched.rhs": MAIN_ITERS * nrhs}
+    check(got == want, f"9b block: launch gauges {got} != {want}")
+    check(counts == expected_counts(MAIN_ITERS, batched=True),
+          f"9b block: launch counts {counts}")
+    check("bicgstab.q_in" not in spans, "9b block: the block solve opened bicgstab.q_in")
+    check(res["iterations"] == [MAIN_ITERS] * nrhs and all(
+        math.isfinite(v) and v < 1 for v in res["rel_residual"]),
+          f"9b block: iterations {res['iterations']}, residuals {res['rel_residual']}")
+    return dict(shape=list(shape), nrhs=nrhs, ms_per_iter=res["ms_per_iter"], gauges=got,
+                q_in_spans="bicgstab.q_in" in spans)
+
+
 def phase9(torch, smi: str, phase4: dict) -> dict:
     """9a the ring forms, 9b the ``--obs`` bundle, 9c the ``--profile``
     trace, 9d the model (module docstring)."""
@@ -1995,6 +2070,8 @@ def phase9(torch, smi: str, phase4: dict) -> dict:
                           launch_gauges={k: v for k, v in man["metrics"]["gauges"].items()
                                          if k.startswith("kernels.") and v})
         emit(dict(phase="obs_bundle", card=smi, **out["obs"]))
+        out["block_obs"] = block_obs_bundle(torch, tmp / "block_obs")
+        emit(dict(phase="block_obs_bundle", card=smi, **out["block_obs"]))
 
         # -- 9c: the --profile trace ---------------------------------------------
         torch.cuda.empty_cache()
@@ -4602,7 +4679,8 @@ def main(argv=None) -> int:
     axpy = {k: v for k, v in ptxas.items() if AXPY_INSTANCE.search(k)}
     record["axpy_ptxas"] = axpy
     emit(dict(phase="axpy_ptxas", kernels=axpy))
-    check(len(axpy) == AXPY_INSTANCES and all(
+    one = sum(AXPY_INSTANCE.search(k).group(1) == "1" for k in axpy)
+    check(len(axpy) == AXPY_INSTANCES and one == 16 and all(
         v.get("spill_stores") == 0 and v.get("spill_loads") == 0 for v in axpy.values()),
           f"K1's axpy instances spill or are missing from the ptxas log: {axpy}")
     if args.sass_against:
@@ -4787,6 +4865,15 @@ def main(argv=None) -> int:
                         bound_ms=k1a["bound_ms"], bound_by=k1a["bound_by"], library_ms=None,
                         q_in_then_k1_ms=k1a["q_in_then_k1_ms"]))
     check(kernels[-1]["launches"] > 0, "stencil_nd_axpy: no launch on its path (paper_mesh)")
+    k1ba = record["axpy"]["blocks"][-1]                # 608^3 x 4, phase 5's
+    kernels.append(dict(name="stencil_nd_batched_axpy", route="cuda",
+                        source=_SRC + "stencil_nd.cu", replaces=None,
+                        launches=counts5["stencil_nd_batched_axpy"],
+                        max_abs_err=err["stencil_nd_batched_axpy"], ms=k1ba["ms"],
+                        plain_ms=None, bound_ms=k1ba["bound_ms"], bound_by=k1ba["bound_by"],
+                        library_ms=None, q_in_then_k1b_ms=k1ba["q_in_then_k1b_ms"]))
+    check(kernels[-1]["launches"] > 0,
+          "stencil_nd_batched_axpy: no launch on its path (batched)")
     k7 = record["wave"]["time"]
     kernels.append(dict(name="wave_leapfrog", route="cuda", source=_SRC + "wave_leapfrog.cu",
                         replaces=None, launches=record["wave"]["shot"]["launches"],

@@ -10,7 +10,8 @@ what a Krylov solver needs from the matrix side:
 * ``fused``               : optional :class:`FusedOps`, the kernel passes that
   run one BiCGStab iteration as kernels plus 3 sync points;
 * ``apply_axpy(alpha, r, s)``: optional ``A (r - st(alpha) s)`` on one
-  unbatched block, the SpMV forming its own input (BiCGStab's second SpMV).
+  block or a batch (``alpha`` then ``[B]``), the SpMV forming its own input
+  (BiCGStab's second SpMV).
 
 Backends (:data:`BACKENDS`):
 
@@ -75,7 +76,7 @@ class LinearOperator:
     reduce_max: Callable
     fused: FusedOps | None = None
     schedule: CommSchedule = OVERLAP
-    #: (alpha, r, s) -> A (r - st(alpha) s) for one unbatched block, or None
+    #: (alpha, r, s) -> A (r - st(alpha) s) for one block or a batch, or None
     apply_axpy: Callable | None = None
 
     @property
@@ -84,8 +85,9 @@ class LinearOperator:
 
     def takes_axpy(self, v: torch.Tensor) -> bool:
         """Whether ``apply_axpy`` takes operands like ``v``: it is set and
-        ``v`` is one unbatched block."""
-        return self.apply_axpy is not None and v.ndim == self.coeffs.ndim
+        ``v`` is one block or a batch of them."""
+        return self.apply_axpy is not None and v.ndim in (self.coeffs.ndim,
+                                                          self.coeffs.ndim + 1)
 
     def with_apply(self, apply: Callable) -> "LinearOperator":
         """A copy with the SpMV swapped (how right preconditioning wraps); the
@@ -186,12 +188,15 @@ def fused_operator(coeffs: StencilCoeffs, fabric: FabricAxes | None = None, *,
     (``kernels/stencil_nd/kernel.py:launch_plan``); nothing is looked up here.
 
     ``apply_axpy`` is the stencil kernel's form that stages its own input
-    ``r - st(alpha) s`` (``kernels/stencil_nd/kernel.py:stencil_nd_axpy``),
-    set where that input need not exist in memory: one rank (no halo to
-    exchange), the family's unit diagonal, and a Z the kernel's 16-B staging
-    takes; it runs on unbatched operands only."""
+    ``r - st(alpha) s`` (``kernels/stencil_nd/kernel.py:stencil_nd_axpy``,
+    and ``stencil_nd_batched_axpy`` for a batch, one ``alpha`` a right-hand
+    side), set where that input need not exist in memory: one rank (no halo
+    to exchange), the family's unit diagonal, and a Z the kernel's 16-B
+    staging takes."""
     from repro_torch.kernels.fused_iter import dot_mixed, update_p, update_q_dots, update_xr_dots
-    from repro_torch.kernels.stencil_nd.kernel import axpy_staged, stencil_nd_axpy
+    from repro_torch.kernels.stencil_nd.kernel import (
+        axpy_staged, stencil_nd_axpy, stencil_nd_batched_axpy,
+    )
     from repro_torch.kernels.stencil_nd.ops import fused_local_apply
 
     fabric = fabric or FabricAxes()
@@ -221,9 +226,9 @@ def fused_operator(coeffs: StencilCoeffs, fabric: FabricAxes | None = None, *,
         cf_list = [cf.diags[n] for n in spec.names]
 
         def apply_axpy(alpha, r, s):
-            return stencil_nd_axpy(alpha, r.contiguous(), s.contiguous(), cf_list,
-                                   spec.offsets, radius=spec.radius,
-                                   accum_dtype=policy.compute)
+            form = stencil_nd_batched_axpy if r.ndim > cf.ndim else stencil_nd_axpy
+            return form(alpha, r.contiguous(), s.contiguous(), cf_list, spec.offsets,
+                        radius=spec.radius, accum_dtype=policy.compute)
 
     batched = lambda a: a.ndim > cf.ndim
     dot_partial = lambda a, b: dot_mixed(a, b, batched=batched(a))

@@ -59,10 +59,12 @@ def bicgstab_fused_step(op, policy: Policy, x, r, p, r0, rho):
 
     ``update_q_dots`` recomputes ``q = r - alpha*s`` in the pass that forms
     the <q,y>/<y,y> partials: the SpMV needs q before y exists.  Where the
-    operator's ``apply_axpy`` takes the operands (``takes_axpy``), the SpMV
-    forms q itself as it stages it, so q is never stored; otherwise q is
-    first formed by plain tensor ops as the SpMV input.  Both use the
-    kernel's arithmetic, so y has the same bits either way.
+    operator's ``apply_axpy`` takes the operands (``takes_axpy``: one rank,
+    the unit diagonal, Z whole 16-B vectors, no preconditioner; one block or
+    a batch), the SpMV forms q itself as it stages it, so q is never stored;
+    otherwise (ranks, a preconditioner, a raw diagonal, odd Z) q is first
+    formed by plain tensor ops as the SpMV input.  Both use the kernel's
+    arithmetic, so y has the same bits either way.
     """
     f, st = op.fused, policy.storage
     s = op.apply(p)

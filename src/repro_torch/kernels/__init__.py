@@ -33,9 +33,9 @@ def element_wise_launch_counts() -> dict[str, int]:
 
 
 def rhs_counts() -> dict[str, int]:
-    """Right-hand sides served so far by the batched stencil kernel's
-    launches, by kernel name; over its :func:`launch_counts` entry, the
-    right-hand sides one launch served."""
+    """Right-hand sides served so far by the batched stencil wrappers'
+    launches (K1b and its axpy form), by wrapper name; over its
+    :func:`launch_counts` entry, the right-hand sides one launch served."""
     from repro_torch.kernels.stencil_nd import kernel as stencil_kernel
 
     return dict(stencil_kernel.rhs)

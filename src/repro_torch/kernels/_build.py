@@ -36,8 +36,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "repro_stencil_nd": [_I, _I, _P, _I, _P, _P, _I, _I, _L, _L, _L, _L, _P, _I, _I, _I, _I,
                          _P],
-    "repro_stencil_nd_axpy": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _L, _L, _L, _P, _I, _I, _I,
-                              _P],
+    "repro_stencil_nd_axpy": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _L, _L, _L, _L, _P, _I, _I,
+                              _I, _I, _P],
     "repro_stencil7_dot": [_I, _I, _P, _P, _P, _I, _L, _L, _L, _P, _I, _I, _I, _L, _P, _P, _P],
     "repro_wave_leapfrog": [_P, _P, _P, _P, _L, _P, _L, _L, _L, _I, _I, _I, _P],
     "repro_update_q_dots": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _L, _P],

@@ -37,7 +37,8 @@
 //   Z % VZ == 0.
 // * A formed v (StageAxpy): BiCGStab's second SpMV input r - st(alpha) s,
 //   r and s bare, each plane copied as the bare block is and combined in
-//   the ring slot, so the input never reaches device memory.
+//   the ring slot, so the input never reaches device memory; for one RHS
+//   or, each with its own alpha, for a chunk of them.
 // * The x range splits into segments (each re-reading its 2r halo planes)
 //   so that (y, z) tiles x segments give enough blocks for the 132 SMs; the
 //   caller's plan (kernels/stencil_nd/kernel.py:launch_plan) sets them.
@@ -415,68 +416,90 @@ __device__ __forceinline__ uint32_t axpy_word(uint32_t r, uint32_t s, uint32_t a
 }
 
 // Staging a plane of q = r - st(a) s for the SpMV that forms its own input
-// (one RHS, both vectors bare, in 16-B vectors as StageAsync): load copies
-// r's plane into the free slot, as StageAsync copies v, and s's into one
-// scratch slot beside the ring; store waits for this thread's copies and
-// combines the vectors it copied, in place.  Each vector is copied and
-// combined by the same thread, so the Ring's barrier alone publishes the
-// slot.  A vector outside the block stays zero, the zero halo q would have.
-// bind gives the vectors, the scratch slot and a (f32, rounded to storage
-// here); src_of gives r's planes, and s's lie at the same offsets.
-template <typename RawT, int ROWS, int P>
-struct StageAxpy : StageAsync<RawT, ROWS, P, 1> {
-  using Base = StageAsync<RawT, ROWS, P, 1>;
+// (both vectors bare, in 16-B vectors as StageAsync), for each of the NB RHS
+// of a chunk: load copies r's plane into the free slot, as StageAsync copies
+// v, and s's into a scratch slot of its own beside the ring; store waits for
+// this thread's copies and combines the vectors it copied, in place, with
+// that RHS's a.  Each vector is copied and combined by the same thread, so
+// the Ring's barrier alone publishes the slot.  A vector outside the block
+// stays zero, the zero halo q would have.  bind gives the chunk's first RHS's
+// vectors (the others lie vstride apart), the first scratch slot (the next
+// lie a slot apart) and the chunk's a (f32, rounded to storage here); src_of
+// gives r's planes, and s's lie at the same offsets.  At NB = 1 every per-RHS offset
+// folds to 0 and no RHS is tested, so the one-RHS form is the same loop.
+template <typename RawT, int ROWS, int P, int NB>
+struct StageAxpy : StageAsync<RawT, ROWS, P, NB> {
+  using Base = StageAsync<RawT, ROWS, P, NB>;
   using Base::KP;
   using Base::VZ;
   using Base::WU;
+  static constexpr int SLOT = ROWS * P;            // elements of one scratch slot
   const RawT* r0 = nullptr;
   const RawT* s0 = nullptr;
   RawT* scratch = nullptr;
-  uint32_t aw = 0;         // st(a): f32 bits, or the bf16 value in both halves
+  uint32_t aw[NB];         // st(a) per RHS: f32 bits, or the bf16 value in both halves
   bool copied = false;     // the plane in flight lies inside the block
 
   __device__ __forceinline__ StageAxpy(int rows_ok, int cols_ok, int row0, int col0)
       : Base(rows_ok, cols_ok, row0, col0) {}
 
-  __device__ __forceinline__ void bind(const RawT* r, const RawT* s, RawT* scr, float a) {
+  // RHS q of the chunk is staged (always, at NB = 1)
+  static __device__ __forceinline__ bool has(int q, int nc) { return NB == 1 || q < nc; }
+
+  // r, s: the chunk's first bare blocks; a: its NB (nc staged) f32 scalars
+  __device__ __forceinline__ void bind(const RawT* r, const RawT* s, RawT* scr, const float* a,
+                                       int nc) {
     r0 = r, s0 = s, scratch = scr;
-    if constexpr (sizeof(RawT) == 4) {
-      aw = __float_as_uint(a);
-    } else {
-      const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(a));
-      aw = h | (h << 16);
+#pragma unroll
+    for (int q = 0; q < NB; ++q) {
+      const float aq = has(q, nc) ? __ldg(a + q) : 0.f;
+      if constexpr (sizeof(RawT) == 4) {
+        aw[q] = __float_as_uint(aq);
+      } else {
+        const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(aq));
+        aw[q] = h | (h << 16);
+      }
     }
   }
 
-  // as StageAsync::load, for one RHS; src: r's plane (null outside the block)
-  __device__ __forceinline__ void load(const RawT* src, int64_t, int pz, int, RawT* dst, int) {
+  // as StageAsync::load; src: the chunk's first plane of r (null outside the block)
+  __device__ __forceinline__ void load(const RawT* src, int64_t vstride, int pz, int nc,
+                                       RawT* dst, int qs) {
     copied = src != nullptr;
     const RawT* ss = copied ? s0 + (src - r0) : nullptr;
 #pragma unroll
-    for (int k = 0; k < KP; ++k) {
-      const int e = threadIdx.x + k * kThreads, row = e / WU, col = VZ * (e % WU);
-      if (row < ROWS) {
-        RawT* at = dst + row * P + col;
-        if (copied && (this->inside >> k & 1u)) {
-          cp_async16(at, src + row * pz + col);
-          cp_async16(scratch + row * P + col, ss + row * pz + col);
-        } else {
-          *reinterpret_cast<uint4*>(at) = make_uint4(0u, 0u, 0u, 0u);
+    for (int q = 0; q < NB; ++q) {
+#pragma unroll
+      for (int k = 0; k < KP; ++k) {
+        const int e = threadIdx.x + k * kThreads, row = e / WU, col = VZ * (e % WU);
+        if (has(q, nc) && row < ROWS) {
+          RawT* at = dst + q * qs + row * P + col;
+          if (copied && (this->inside >> k & 1u)) {
+            cp_async16(at, src + q * vstride + row * pz + col);
+            cp_async16(scratch + q * SLOT + row * P + col, ss + q * vstride + row * pz + col);
+          } else {
+            *reinterpret_cast<uint4*>(at) = make_uint4(0u, 0u, 0u, 0u);
+          }
         }
       }
     }
   }
-  __device__ __forceinline__ void store(RawT* dst, int, int) const {
+  __device__ __forceinline__ void store(RawT* dst, int qs, int nc) const {
     cp_async_wait_all();
     if (!copied) return;
 #pragma unroll
-    for (int k = 0; k < KP; ++k) {
-      const int e = threadIdx.x + k * kThreads, row = e / WU, col = VZ * (e % WU);
-      if (row < ROWS && (this->inside >> k & 1u)) {
-        uint4* at = reinterpret_cast<uint4*>(dst + row * P + col);
-        const uint4 r = *at, s = *reinterpret_cast<const uint4*>(scratch + row * P + col);
-        *at = make_uint4(axpy_word<RawT>(r.x, s.x, aw), axpy_word<RawT>(r.y, s.y, aw),
-                         axpy_word<RawT>(r.z, s.z, aw), axpy_word<RawT>(r.w, s.w, aw));
+    for (int q = 0; q < NB; ++q) {
+#pragma unroll
+      for (int k = 0; k < KP; ++k) {
+        const int e = threadIdx.x + k * kThreads, row = e / WU, col = VZ * (e % WU);
+        if (has(q, nc) && row < ROWS && (this->inside >> k & 1u)) {
+          uint4* at = reinterpret_cast<uint4*>(dst + q * qs + row * P + col);
+          const uint4 r = *at;
+          const uint4 s = *reinterpret_cast<const uint4*>(scratch + q * SLOT + row * P + col);
+          const uint32_t a = aw[q];
+          *at = make_uint4(axpy_word<RawT>(r.x, s.x, a), axpy_word<RawT>(r.y, s.y, a),
+                           axpy_word<RawT>(r.z, s.z, a), axpy_word<RawT>(r.w, s.w, a));
+        }
       }
     }
   }

@@ -48,10 +48,11 @@
 // than a tile in any axis (the overlap schedule's ring slabs, down to 1 x
 // by x Z).
 //
-// A fourth form takes BiCGStab's second SpMV input unformed: y = A q with q
-// = r - st(alpha) s, one RHS, r and s bare; it stages each plane of q from
-// a plane of r and one of s (stencil_march.cuh: StageAxpy), so q is never
-// written to device memory.  Its shared memory holds one more plane, of s.
+// A fourth form takes BiCGStab's second SpMV input unformed: y[b] = A q[b]
+// with q[b] = r[b] - st(alpha[b]) s[b], r and s bare, for one RHS or a batch
+// in chunks as above; it stages each plane of q from a plane of r and one of
+// s (stencil_march.cuh: StageAxpy), so q is never written to device memory.
+// Its shared memory holds one more plane a RHS of the chunk, of s.
 #include "stencil_march.cuh"
 
 namespace repro {
@@ -63,7 +64,7 @@ __host__ __device__ constexpr int max_chunk(int r) { return r == 1 ? 4 : r == 2 
 // How the kernel reads v: element by element (either block, p.bare says
 // which); the r-padded block in bf16 pairs of 4-B loads; the bare block in
 // 16-B vectors copied asynchronously (Z % VZ == 0 and v 16-B aligned); or v
-// = r - st(alpha) s formed from two bare vectors so copied (one RHS)
+// = r - st(alpha) s formed from two bare vectors so copied
 enum Form : int { kElems = 0, kPaddedPairs = 1, kBareVec = 2, kBareAxpy = 3 };
 
 struct Params {
@@ -75,8 +76,8 @@ struct Params {
   int wide;                       // fields and u 16-B aligned and Z % VZ == 0
   int bare;                       // vp is the bare block
   int64_t vp_stride, u_stride;    // per-RHS element strides
-  const void* sp;                 // kBareAxpy: s (bx, by, Z), v = vp - st(*alpha) sp
-  const float* alpha;             // kBareAxpy: one f32
+  const void* sp;                 // kBareAxpy: s like vp, v[b] = vp[b] - st(alpha[b]) sp[b]
+  const float* alpha;             // kBareAxpy: nb f32
 };
 
 // Blocks per SM the register budget is set for: one RHS (64 registers; 4
@@ -93,7 +94,6 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NB)) stencil_nd_kernel(co
   constexpr int VZ = Tile<T>::VZ, TZ = Tile<T>::TZ, P = Tile<T>::P;
   constexpr bool AXPY = FORM == kBareAxpy;
   constexpr bool VEC = FORM == kBareVec || AXPY;
-  static_assert(!AXPY || NB == 1, "the formed input is one RHS");
   const bool bare = VEC || (FORM == kElems && p.bare);
   // staged rows and elements per row: the tile's z range and r either side,
   // or, for 16-B vectors of the bare block, the whole shared row
@@ -102,7 +102,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NB)) stencil_nd_kernel(co
   constexpr int SLOT = ROWS * P;                     // elements of one staged plane
   constexpr int QS = SLOTS * SLOT;                   // elements of one RHS's ring
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  RawT* sm = reinterpret_cast<RawT*>(smem_raw);     // [NB][SLOTS][ROWS][P] (+ s's slot)
+  RawT* sm = reinterpret_cast<RawT*>(smem_raw);     // [nc][SLOTS][ROWS][P] (+ [nc] s slots)
 
   const int x0 = blockIdx.y * p.seg_len;
   if (x0 >= p.bx) return;
@@ -119,11 +119,15 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NB)) stencil_nd_kernel(co
   const RawT* vp = static_cast<const RawT*>(p.vp) + b0 * p.vp_stride;
 
   // the plane being staged
-  std::conditional_t<AXPY, StageAxpy<RawT, ROWS, P>,
+  std::conditional_t<AXPY, StageAxpy<RawT, ROWS, P, NB>,
                      std::conditional_t<VEC, StageAsync<RawT, ROWS, P, NB>,
                                         Stage<RawT, ROWS, W, P, NB, FORM == kPaddedPairs>>>
       stage(rows_ok, cols_ok, row0, col0);
-  if constexpr (AXPY) stage.bind(vp, static_cast<const RawT*>(p.sp), sm + QS, __ldg(p.alpha));
+  // the chunk's first r and s (s strided as v), s's slots after the chunk's
+  // rings, its alphas; a chunk of 1 may still lie past RHS 0 (b0 > 0)
+  if constexpr (AXPY)
+    stage.bind(vp, static_cast<const RawT*>(p.sp) + b0 * p.vp_stride,
+               sm + (NB == 1 ? 1 : nc) * QS, p.alpha + b0, nc);
   auto src_of = [&](int pp) -> const RawT* {         // padded plane pp (interior pp - r)
     if (!bare) return vp + ((int64_t)pp * py + ty0) * pz + tz0;
     return (unsigned)(pp - R) < (unsigned)p.bx
@@ -170,7 +174,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NB)) stencil_nd_kernel(co
 template <typename T, typename A, int KIND, int R, int NB, int FORM>
 static int launch(Params& p, int nc_max, int segments, cudaStream_t stream) {
   constexpr int SLOT = (kTY + 2 * R) * Tile<T>::P, QS = (2 * R + 2) * SLOT;
-  const size_t smem = ((size_t)nc_max * QS + (FORM == kBareAxpy ? SLOT : 0)) * sizeof(T);
+  const size_t smem = (size_t)nc_max * (QS + (FORM == kBareAxpy ? SLOT : 0)) * sizeof(T);
   auto kern = stencil_nd_kernel<T, A, KIND, R, NB, FORM>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
@@ -197,7 +201,7 @@ static int dispatch_chunk(Params& p, int chunk, int segments, cudaStream_t s) {
 
 template <typename T, typename A, int KIND, int R>
 static int dispatch_form(Params& p, int form, int chunk, int segments, cudaStream_t s) {
-  if (form == kBareAxpy) return launch<T, A, KIND, R, 1, kBareAxpy>(p, 1, segments, s);
+  if (form == kBareAxpy) return dispatch_chunk<T, A, KIND, R, kBareAxpy>(p, chunk, segments, s);
   if constexpr (sizeof(T) == 2) {
     if (form == kPaddedPairs)
       return dispatch_chunk<T, A, KIND, R, kPaddedPairs>(p, chunk, segments, s);
@@ -233,7 +237,7 @@ static bool family_offsets(const int* off, int n_off, int r) {
   return false;
 }
 
-// sp non-null: the formed input (kBareAxpy), which needs one bare RHS, Z %
+// sp non-null: the formed input (kBareAxpy), which needs the bare block, Z %
 // VZ == 0 and vp and sp 16-B aligned
 template <typename T, typename A>
 static int run(const void* vp, const void* sp, const float* alpha, bool bare,
@@ -241,7 +245,7 @@ static int run(const void* vp, const void* sp, const float* alpha, bool bare,
                long long by, long long z, void* u, int ty, int tz, int seg_len, int chunk,
                cudaStream_t s) {
   if (ty != kTY || tz != Tile<T>::TZ) return (int)cudaErrorInvalidValue;
-  if (sp != nullptr && (nb != 1 || !bare || z % Tile<T>::VZ != 0 || !aligned16(vp) ||
+  if (sp != nullptr && (!bare || z % Tile<T>::VZ != 0 || !aligned16(vp) ||
                         !aligned16(sp) || alpha == nullptr))
     return (int)cudaErrorInvalidValue;
   const long long ntz = (z + tz - 1) / tz, nty = (by + ty - 1) / ty;
@@ -327,16 +331,17 @@ int repro_stencil_nd(int storage, int accum, const void* vp, int bare, const voi
                             radius, nb, bx, by, z, u, ty, tz, seg_len, chunk, stream);
 }
 
-// u = A q with q = r - st(*alpha) s formed as the kernel stages it: r and s
-// the bare (bx, by, Z) block, Z a multiple of 16 B / itemsize and both 16-B
-// aligned; alpha a device pointer to one f32.  The rest as repro_stencil_nd
-// with B = 1.
+// u[b] = A q[b] with q[b] = r[b] - st(alpha[b]) s[b] formed as the kernel
+// stages it, for B blocks back to back (B = 1: one block): r and s bare
+// (bx, by, Z) blocks, Z a multiple of 16 B / itemsize and both 16-B aligned;
+// alpha a device pointer to B f32.  The rest as repro_stencil_nd.
 int repro_stencil_nd_axpy(int storage, int accum, const void* r, const void* s,
                           const void* alpha, const void* cf_ptrs, const void* offsets, int n_off,
-                          int radius, long long bx, long long by, long long z, void* u, int ty,
-                          int tz, int seg_len, void* stream) {
+                          int radius, long long nb, long long bx, long long by, long long z,
+                          void* u, int ty, int tz, int seg_len, int chunk, void* stream) {
   return repro::sten::entry(storage, accum, r, s, static_cast<const float*>(alpha), 1, cf_ptrs,
-                            offsets, n_off, radius, 1, bx, by, z, u, ty, tz, seg_len, 1, stream);
+                            offsets, n_off, radius, nb, bx, by, z, u, ty, tz, seg_len, chunk,
+                            stream);
 }
 
 const char* repro_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -16,9 +16,11 @@ segments and RHS chunks by :func:`launch_plan`, the one place that decides
 the cut.  Every plan gives the same bits.
 :func:`stencil_nd_axpy` is BiCGStab's second SpMV with its input unformed:
 ``A (r - st(alpha) s)``, the kernel forming each plane of the input as it
-stages it, so that input never reaches device memory.  ``launches`` counts
-kernel launches only, one counter per wrapper; ``rhs`` counts the
-right-hand sides the batched wrapper's launches served.
+stages it, so that input never reaches device memory;
+:func:`stencil_nd_batched_axpy` is its batched form, one ``alpha`` a
+right-hand side.  ``launches`` counts kernel launches only, one counter per
+wrapper; ``rhs`` counts the right-hand sides the batched wrappers' launches
+served.
 """
 
 from __future__ import annotations
@@ -33,9 +35,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.stencil_nd.ref import stencil_nd_padded_ref, stencil_nd_ref
 
 #: kernel launches in this process (CUDA tensors only)
-launches = {"stencil_nd": 0, "stencil_nd_batched": 0, "stencil_nd_axpy": 0}
-#: right-hand sides served by those launches (CUDA tensors only), the batched wrapper's
-rhs = {"stencil_nd_batched": 0}
+launches = {"stencil_nd": 0, "stencil_nd_batched": 0, "stencil_nd_axpy": 0,
+            "stencil_nd_batched_axpy": 0}
+#: right-hand sides served by those launches (CUDA tensors only), the batched wrappers'
+rhs = {"stencil_nd_batched": 0, "stencil_nd_batched_axpy": 0}
 
 #: the family specs the kernel is compiled for: (offset count, radius) ->
 #: (kind, the most right-hand sides one block carries; max_chunk of stencil_nd.cu)
@@ -88,8 +91,9 @@ def launch_plan(shape: tuple[int, int, int], nb: int, n_off: int, radius: int,
     compiled one (:func:`compiled_tile`), the RHS chunk 1 for one RHS and
     the family's maximum otherwise, and the x segments aim at
     ``TARGET_BLOCKS`` blocks.  ``axpy``: the form that stages
-    ``r - st(alpha) s`` (:func:`stencil_nd_axpy`), whose shared memory
-    holds one more plane, of ``s``."""
+    ``r - st(alpha) s`` (:func:`stencil_nd_axpy`,
+    :func:`stencil_nd_batched_axpy`), whose shared memory holds one more
+    plane a right-hand side of the chunk, of ``s``."""
     if (n_off, radius) not in FAMILY:
         raise ValueError(f"the stencil kernel is built for the family specs {sorted(FAMILY)} "
                          f"(offsets, radius); got ({n_off}, {radius})")
@@ -103,9 +107,9 @@ def launch_plan(shape: tuple[int, int, int], nb: int, n_off: int, radius: int,
     tiles_y, tiles_z = -(-by // ty), -(-z // tz)
     chunks = -(-nb // chunk)
     # shared memory: a ring of 2r+2 planes of (ty+2r) rows, pitch tz + 2 vz, per RHS,
-    # and the axpy form's plane of s
+    # and the axpy form's plane of s per RHS
     plane = (ty + 2 * r) * (tz + 2 * vz) * itemsize
-    smem = (min(chunk, nb) * (2 * r + 2) + int(axpy)) * plane
+    smem = min(chunk, nb) * (2 * r + 2 + int(axpy)) * plane
     want = -(-TARGET_BLOCKS // (tiles_y * tiles_z * chunks))
     seg_len = min(bx, max(MIN_SEGMENT, -(-bx // want)))
     return LaunchPlan(ty=ty, tz=tz, seg_len=seg_len, chunk=chunk, tiles_y=tiles_y,
@@ -232,36 +236,83 @@ def stencil_nd_axpy(alpha: torch.Tensor, r: torch.Tensor, s: torch.Tensor,
     the kernel stages 16-B vectors: Z not a whole number of them
     (:func:`axpy_staged`), or an operand off a 16-B boundary, raises.
     """
+    return _axpy("stencil_nd_axpy", alpha, r, s, coeffs, offsets, radius, accum_dtype, False)
+
+
+def stencil_nd_batched_axpy(alpha: torch.Tensor, r: torch.Tensor, s: torch.Tensor,
+                            coeffs: list[torch.Tensor],
+                            offsets: tuple[tuple[int, int, int], ...], *, radius: int,
+                            accum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """y[b] = A q[b] with q[b] = r[b] - st(alpha[b]) s[b] for a batch of B
+    right-hand sides in one launch: :func:`stencil_nd_axpy` for each RHS.
+
+    ``alpha`` is a ``[B]`` f32 tensor on ``r``'s device; ``r`` and ``s``
+    are the bare ``(B, bx, by, Z)`` block; the rest as for
+    :func:`stencil_nd_axpy`.  ``y`` equals :func:`stencil_nd_batched` on
+    ``r - alpha.to(r.dtype)[:, None, None, None] * s`` bit for bit, and each
+    slice :func:`stencil_nd_axpy` on that slice.  The launch is cut as
+    :func:`stencil_nd_batched`'s, B from 1 to ``_build.MAX_BATCH``.
+    """
+    return _axpy("stencil_nd_batched_axpy", alpha, r, s, coeffs, offsets, radius, accum_dtype,
+                 True)
+
+
+def _axpy(what: str, alpha: torch.Tensor, r: torch.Tensor, s: torch.Tensor,
+          coeffs: list[torch.Tensor], offsets, radius: int, accum_dtype: torch.dtype,
+          batched: bool) -> torch.Tensor:
+    """The axpy forms' checks, then the plain version on a CPU tensor, else
+    the launch; B = 1 for the unbatched form."""
     if tuple(r.shape) != tuple(s.shape) or r.dtype != s.dtype:
-        raise ValueError(f"stencil_nd_axpy takes r and s of one shape and dtype; got "
+        raise ValueError(f"{what} takes r and s of one shape and dtype; got "
                          f"{r.dtype}{tuple(r.shape)} and {s.dtype}{tuple(s.shape)}")
-    shape, bare = _form("stencil_nd_axpy", r, coeffs, radius, 0)
+    shape, bare = _form(what, r, coeffs, radius, int(batched))
     if not bare:
-        raise ValueError(f"stencil_nd_axpy takes the bare block {shape}; got {tuple(r.shape)}")
+        raise ValueError(f"{what} takes the bare block {shape}; got {tuple(r.shape)}")
+    nb = r.shape[0] if batched else 1
+    if batched and not 1 <= nb <= _build.MAX_BATCH:
+        raise ValueError(f"{what} takes 1..{_build.MAX_BATCH} right-hand sides, got {nb}")
+    if batched and tuple(alpha.shape) != (nb,):
+        raise ValueError(f"{what} takes alpha of shape ({nb},), one a right-hand side; got "
+                         f"{tuple(alpha.shape)}")
     if r.device.type == "cpu":
-        return stencil_nd(r - alpha.to(r.dtype) * s, coeffs, offsets, radius=radius,
-                          accum_dtype=accum_dtype)
+        a = alpha.to(r.dtype)
+        if batched:
+            return stencil_nd_batched(r - a.reshape((nb,) + (1,) * len(shape)) * s, coeffs,
+                                      offsets, radius=radius, accum_dtype=accum_dtype)
+        return stencil_nd(r - a * s, coeffs, offsets, radius=radius, accum_dtype=accum_dtype)
+    return _launch_axpy(what, alpha, r, s, coeffs, offsets, radius, accum_dtype, batched)
+
+
+def _launch_axpy(what: str, alpha: torch.Tensor, r: torch.Tensor, s: torch.Tensor,
+                 coeffs: list[torch.Tensor], offsets, radius: int, accum_dtype: torch.dtype,
+                 batched: bool) -> torch.Tensor:
+    """Check, plan, allocate ``u``, launch and count an axpy form."""
+    shape = tuple(r.shape[int(batched):])
+    nb = r.shape[0] if batched else 1
     for v in (r, s):
-        _check("stencil_nd_axpy", v, coeffs, offsets, radius, 0)
+        _check(what, v, coeffs, offsets, radius, int(batched))
     if not axpy_staged(shape, r.element_size()) or r.data_ptr() % 16 or s.data_ptr() % 16:
-        raise ValueError(f"stencil_nd_axpy stages 16-B vectors: Z a multiple of "
+        raise ValueError(f"{what} stages 16-B vectors: Z a multiple of "
                          f"{16 // r.element_size()} and r, s 16-B aligned; got Z = {shape[-1]}, "
                          f"r at {r.data_ptr() % 16}, s at {s.data_ptr() % 16} mod 16")
-    if alpha.dtype != torch.float32 or alpha.numel() != 1 or alpha.device != r.device:
-        raise ValueError(f"stencil_nd_axpy takes alpha as one f32 on {r.device}; got "
+    if alpha.dtype != torch.float32 or alpha.numel() != nb or alpha.device != r.device:
+        raise ValueError(f"{what} takes alpha as {nb} f32 on {r.device}; got "
                          f"{alpha.dtype}{tuple(alpha.shape)} on {alpha.device}")
-    plan = launch_plan(shape, 1, len(offsets), radius, r.element_size(), axpy=True)
+    plan = launch_plan(shape, nb, len(offsets), radius, r.element_size(), axpy=True)
     lib = _build.load_library()
     alpha = alpha.contiguous()
-    u = torch.empty(shape, dtype=r.dtype, device=r.device)
+    u = torch.empty(r.shape, dtype=r.dtype, device=r.device)
     ptrs = (ctypes.c_uint64 * len(coeffs))(*(c.data_ptr() for c in coeffs))
     offs = (ctypes.c_int * (3 * len(offsets)))(*(o for off in offsets for o in off))
     code = lib.repro_stencil_nd_axpy(
         _build.dtype_code(r.dtype), _build.dtype_code(accum_dtype), r.data_ptr(), s.data_ptr(),
         alpha.data_ptr(), ctypes.addressof(ptrs), ctypes.addressof(offs), len(coeffs), radius,
-        *shape, u.data_ptr(), plan.ty, plan.tz, plan.seg_len, _build.stream_handle(r.device))
-    _build.check_launch(lib, code, "stencil_nd_axpy")
-    launches["stencil_nd_axpy"] += 1
+        nb, *shape, u.data_ptr(), plan.ty, plan.tz, plan.seg_len, plan.chunk,
+        _build.stream_handle(r.device))
+    _build.check_launch(lib, code, what)
+    launches[what] += 1
+    if what in rhs:
+        rhs[what] += nb
     return u
 
 

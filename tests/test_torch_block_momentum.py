@@ -174,17 +174,47 @@ def test_block_is_three_solo_solves_bit_for_bit(shape):
         assert torch.equal(res.rel_residual[c], solo.rel_residual)
 
 
+def _q_in_spans(fn):
+    """``fn()`` under the profiler: its result and the ``bicgstab.q_in``
+    spans it opened."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = fn()
+    return res, sum(e.name == "bicgstab.q_in" for e in prof.events())
+
+
+@pytest.mark.parametrize("seed", [11, 12])
+@pytest.mark.parametrize("policy", sorted(TOL))
+def test_block_through_batched_axpy_is_the_q_in_route_bit_for_bit(policy, seed, monkeypatch):
+    """The cell's block solve takes the batched axpy form for its second
+    SpMV and opens no ``bicgstab.q_in`` span; the same solve forced through
+    the plain ``q_in`` route (the operator built without the form) gives x,
+    the per-RHS residuals and iteration counts bit for bit."""
+    fields, b = _system(SHAPES[0], seed, policy)
+    iterations = TOL[policy][1]
+    got, got_q_in = _q_in_spans(lambda: _port(fields, b, policy, iterations))
+    monkeypatch.setattr(kernel, "axpy_staged", lambda shape, itemsize: False)
+    want, want_q_in = _q_in_spans(lambda: _port(fields, b, policy, iterations))
+    assert (got_q_in, want_q_in) == (0, iterations)
+    assert got.iterations.tolist() == want.iterations.tolist() == [iterations] * NRHS
+    assert torch.equal(got.x, want.x)
+    assert torch.equal(got.rel_residual, want.rel_residual)
+    assert torch.equal(got.breakdown, want.breakdown)
+
+
 # ---------------------------------------------------------------------------
 # The counters: right-hand sides a batched SpMV launch, per-RHS freeze merges
 # ---------------------------------------------------------------------------
 
 class _StandIn:
-    """Stands in for the kernel library: ``repro_stencil_nd`` writes the
-    plain version's result into the output the wrapper allocated, and
-    records the right-hand sides it was handed."""
+    """Stands in for the kernel library: ``repro_stencil_nd`` and
+    ``repro_stencil_nd_axpy`` write the plain version's result into the
+    output the wrapper allocated, and record the right-hand sides each was
+    handed."""
 
     def __init__(self, outputs):
-        self.outputs, self.pending, self.nbs = outputs, None, []
+        self.outputs, self.pending, self.nbs, self.axpy_nbs = outputs, None, [], []
 
     def repro_stencil_nd(self, dtype, accum, vp_ptr, bare, ptrs, offs, n_off, r, nb, bx, by,
                          bz, u_ptr, ty, tz, seg_len, chunk, stream):
@@ -196,12 +226,23 @@ class _StandIn:
         self.nbs.append(nb)
         return 0
 
+    def repro_stencil_nd_axpy(self, dtype, accum, r_ptr, s_ptr, alpha_ptr, ptrs, offs, n_off,
+                              radius, nb, bx, by, bz, u_ptr, ty, tz, seg_len, chunk, stream):
+        alpha, r, s, coeffs, offsets, accum_dtype = self.pending
+        assert (r.data_ptr(), s.data_ptr(), alpha.data_ptr()) == (r_ptr, s_ptr, alpha_ptr)
+        assert nb == r.shape[0] == alpha.numel() and chunk >= 1
+        q = r - alpha.to(r.dtype).reshape((nb, 1, 1, 1)) * s
+        self.outputs[u_ptr].copy_(stencil_nd_ref(q, coeffs, offsets, accum_dtype=accum_dtype))
+        self.axpy_nbs.append(nb)
+        return 0
+
 
 @pytest.fixture
 def stand_in(monkeypatch):
-    """The batched SpMV of a CPU solve sent through the wrapper's launch path
-    (check bypassed for the device, a stand-in library) instead of the plain
-    version; the launch counters are this test's own."""
+    """The batched SpMVs of a CPU solve (K1b and its axpy form) sent through
+    the wrappers' launch paths (check bypassed for the device, a stand-in
+    library) instead of the plain versions; the launch counters are this
+    test's own."""
     outputs = {}
     real_empty = torch.empty
 
@@ -217,6 +258,11 @@ def stand_in(monkeypatch):
         return kernel._launch("stencil_nd_batched", vp, coeffs, offsets, radius, accum_dtype,
                               True)
 
+    def batched_axpy(alpha, r, s, coeffs, offsets, *, radius, accum_dtype=torch.float32):
+        lib.pending = (alpha, r, s, coeffs, offsets, accum_dtype)
+        return kernel._launch_axpy("stencil_nd_batched_axpy", alpha, r, s, coeffs, offsets,
+                                   radius, accum_dtype, True)
+
     monkeypatch.setattr(torch, "empty", empty)
     monkeypatch.setattr(_build, "load_library", lambda: lib)
     monkeypatch.setattr(_build, "stream_handle", lambda device: 0)
@@ -225,22 +271,24 @@ def stand_in(monkeypatch):
     monkeypatch.setattr(kernel, "launches", dict.fromkeys(kernel.launches, 0))
     monkeypatch.setattr(kernel, "rhs", dict.fromkeys(kernel.rhs, 0))
     monkeypatch.setattr(ops, "stencil_nd_batched", batched)
+    monkeypatch.setattr(kernel, "stencil_nd_batched_axpy", batched_axpy)
     return lib
 
 
 def test_each_batched_spmv_launch_serves_the_block(stand_in):
-    """A B = 3 solve launches the batched stencil twice an iteration (the
-    axpy form is one-RHS only), each launch serving all 3 right-hand sides,
-    and gives the plain solve's bits."""
+    """A B = 3 solve launches the batched stencil once an iteration (the
+    first SpMV) and its axpy form once (the second, forming r - st(alpha) s
+    itself), each launch serving all 3 right-hand sides, and gives the plain
+    solve's bits."""
     fields, b = _system(SHAPES[0], 6, "bf16_mixed")
     res = _port(fields, b, "bf16_mixed", 6)
-    assert stand_in.nbs == [NRHS] * 12
-    assert kernel.launches["stencil_nd_batched"] == 12
-    assert rhs_counts() == {"stencil_nd_batched": 12 * NRHS}
+    assert stand_in.nbs == [NRHS] * 6 and stand_in.axpy_nbs == [NRHS] * 6
+    assert kernel.launches["stencil_nd_batched"] == kernel.launches["stencil_nd_batched_axpy"] == 6
+    assert rhs_counts() == {"stencil_nd_batched": 6 * NRHS, "stencil_nd_batched_axpy": 6 * NRHS}
     assert kernel.launches["stencil_nd"] == kernel.launches["stencil_nd_axpy"] == 0
     reset_launch_counts()
-    assert rhs_counts() == {"stencil_nd_batched": 0}
-    assert kernel.launches["stencil_nd_batched"] == 0
+    assert rhs_counts() == {"stencil_nd_batched": 0, "stencil_nd_batched_axpy": 0}
+    assert kernel.launches["stencil_nd_batched"] == kernel.launches["stencil_nd_batched_axpy"] == 0
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ops, "stencil_nd_batched", kernel.stencil_nd_batched)
         want = _port(fields, b, "bf16_mixed", 6)
@@ -252,7 +300,7 @@ def test_the_plain_version_counts_no_rhs():
     counted."""
     fields, b = _system(SHAPES[1], 7, "f32")
     _port(fields, b, "f32", 2)
-    assert rhs_counts() == {"stencil_nd_batched": 0}
+    assert rhs_counts() == {"stencil_nd_batched": 0, "stencil_nd_batched_axpy": 0}
 
 
 def _merges() -> int:
@@ -290,7 +338,8 @@ def test_freeze_merges_count_an_rhs_converging_early():
 
 def test_bundle_carries_both_counters(tmp_path):
     """The ``--obs`` bundle of a 3-RHS solve carries the batched stencil's
-    right-hand sides (0 on CPU tensors) and the freeze merges."""
+    and its axpy form's launches and right-hand sides (0 on CPU tensors)
+    and the freeze merges."""
     from repro_torch.launch import solve
 
     out = solve.main(["--device", "cpu", "--backend", "fused", "--mesh", "6", "6", "8",
@@ -299,7 +348,9 @@ def test_bundle_carries_both_counters(tmp_path):
     from repro_torch.obs import manifest
 
     man = manifest.load_manifest(out["run_dir"])
-    assert man["metrics"]["gauges"]["kernels.stencil_nd_batched.rhs"] == 0
+    gauges = man["metrics"]["gauges"]
+    for name in ("stencil_nd_batched", "stencil_nd_batched_axpy"):
+        assert gauges[f"kernels.{name}.rhs"] == gauges[f"kernels.{name}.launches"] == 0
     assert man["metrics"]["counters"]["krylov.freeze_merges"] >= 0
 
 

@@ -61,7 +61,8 @@ def test_cpu_tensors_launch_no_kernel():
     assert int(res.iterations) > 0
     unbatched = {"stencil_nd", "update_q_dots", "update_xr_dots", "update_p", "dot_mixed"}
     assert set(launch_counts()) == (unbatched | {n + "_batched" for n in unbatched}
-                                    | {"stencil_nd_axpy", "stencil7_dot", "wave_leapfrog"})
+                                    | {"stencil_nd_axpy", "stencil_nd_batched_axpy",
+                                       "stencil7_dot", "wave_leapfrog"})
     assert not any(launch_counts().values()), launch_counts()
 
 

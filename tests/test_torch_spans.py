@@ -57,14 +57,14 @@ def _parent(e) -> str | None:
 
 def _stub_axpy(monkeypatch):
     """Record K1's axpy form (the second SpMV, its input formed as it is
-    staged) as a profiler range ``k1_axpy`` around the real wrapper."""
-    real = stencil_kernel.stencil_nd_axpy
+    staged), unbatched and batched, as a profiler range ``k1_axpy`` around
+    the real wrapper."""
+    for name in ("stencil_nd_axpy", "stencil_nd_batched_axpy"):
+        def k1_axpy(alpha, r, s, *a, real=getattr(stencil_kernel, name), **kw):
+            with torch_profiler.record_function("k1_axpy"):
+                return real(alpha, r, s, *a, **kw)
 
-    def k1_axpy(alpha, r, s, *a, **kw):
-        with torch_profiler.record_function("k1_axpy"):
-            return real(alpha, r, s, *a, **kw)
-
-    monkeypatch.setattr(stencil_kernel, "stencil_nd_axpy", k1_axpy)
+        monkeypatch.setattr(stencil_kernel, name, k1_axpy)
 
 
 def test_off_span_is_the_shared_noop_and_opens_no_range(monkeypatch):
@@ -134,14 +134,28 @@ def test_pad_twice_an_iteration(monkeypatch):
     assert {_parent(e) for e in axpys} == {"krylov.iteration"}
 
 
+def test_a_block_forms_q_in_its_spmv(monkeypatch):
+    """One rank, a batch of right-hand sides with Z a whole number of 16-B
+    vectors: the second SpMV is the batched axpy form, once an iteration
+    under ``krylov.iteration``, and no ``bicgstab.q_in`` opens."""
+    _stub_axpy(monkeypatch)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = _solve(3)
+    assert res.iterations.tolist() == [ITERS] * 3
+    assert not [e for e in prof.events() if e.name == "bicgstab.q_in"]
+    axpys = [e for e in prof.events() if e.name == "k1_axpy"]
+    assert len(axpys) == ITERS
+    assert {_parent(e) for e in axpys} == {"krylov.iteration"}
+
+
 @pytest.mark.parametrize("case", ["batched", "odd_z", "raw_diagonal"])
 def test_q_in_span_on_the_fallback_paths(case, monkeypatch):
-    """Where the operator has no axpy form for the operands (a batch of
-    right-hand sides, a Z that is no whole number of 16-B vectors, a raw
-    diagonal), the step forms ``q_in`` by plain ops, once an iteration under
-    ``bicgstab.q_in``, and the wrapper of the axpy form never runs."""
+    """Where the operator has no axpy form for the operands (a Z that is no
+    whole number of 16-B vectors, for a batch of right-hand sides or one; a
+    raw diagonal), the step forms ``q_in`` by plain ops, once an iteration
+    under ``bicgstab.q_in``, and neither wrapper of the axpy form runs."""
     _stub_axpy(monkeypatch)
-    shape, nrhs = {"batched": (SHAPE, 2), "odd_z": ((12, 10, 9), 1),
+    shape, nrhs = {"batched": ((12, 10, 9), 2), "odd_z": ((12, 10, 9), 1),
                    "raw_diagonal": (SHAPE, 1)}[case]
     gen = torch.Generator().manual_seed(7)
     cf = (heterogeneous_poisson(gen, shape) if case == "raw_diagonal"
